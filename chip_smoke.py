@@ -10,19 +10,38 @@ code is non-zero:
              and the torch/CUDA versions.
 2. build   — builds every kernel library from photon_ml_torch/csrc/,
              all nvcc processes at once.
-3. kernels — holds each kernel against its plain PyTorch version on the
-             card, at the shapes the serving path gives it and at the
-             kernel-sweep shape, and times both with CUDA events: on
+3. kernels — holds serving_score against its plain PyTorch version on
+             the card, at the shapes the serving path gives it and at
+             the kernel-sweep shape, and times both with CUDA events: on
              the card alone (CUDA-graph replay, "ms") and per call from
              Python ("call_ms").
-4. serve   — the port's main path: a config-4 (MovieLens-20M width)
-             GAME model from a seed, written with save_game_model and
-             served through cli.serve.create_server on port 0, answering
+4. serve   — the serving path: a config-4 (MovieLens-20M width) GAME
+             model from a seed, written with save_game_model and served
+             through cli.serve.create_server on port 0, answering
              concurrent HTTP clients; every score is checked against a
-             float64 numpy oracle. The kernels' launch counts and the
-             service metrics are read around the HTTP traffic alone;
-             a direct pass around HTTP (with a profiled repeat) comes
-             after they are read.
+             float64 numpy oracle. serving_score's launch count and the
+             service metrics are read around the HTTP traffic alone; a
+             direct pass around HTTP (with a profiled repeat) comes after
+             they are read.
+5. train   — the training path: config 4 at full width and MovieLens-20M's
+             20,000,263 rows from a seed (5% held out), the three
+             coordinates built as dev-scripts/flagship_movielens.py
+             builds them, and a 2-iteration game.descent.run with the
+             validation AUC after each update. The row movers' launch
+             counts and the solver's host syncs are read around the
+             descent alone and must equal 2 x the bucket waves.
+6. kernels — holds re_rows' gather_rows and scatter_rows_ bit for bit
+             against their plain versions at every wave shape the train
+             phase gave them, on an all-padding wave and at a sweep
+             shape, and times kernel, plain version and library call.
+7. train_parity — the same descent at 300,000 rows (same widths and
+             entity counts) on the card and on the CPU in one process.
+             Within 5e-3: the validation AUC after each update and the
+             mean validation probability of the two runs; and each
+             update of the card's run replayed on the CPU from the same
+             offsets and warm start, the fixed effect's coefficients and
+             those of every random-effect entity the data determines
+             (16+ rows, both labels).
 
 Then it prints the kernel table ({"kernels": [...]}), nvidia-smi's
 "name, power.limit" line, and as its last line
@@ -59,6 +78,19 @@ NUM_ITEMS = 27_278
 ZIPF_SKEW = 1.2
 UNSEEN_FRAC = 0.02
 SEED = 2026
+
+# Config-4 training (dev-scripts/flagship_movielens.py): MovieLens-20M's
+# rating count with 5% held out, L2 weight 1.0, 25 L-BFGS iterations,
+# and at most 65,536 active rows per entity (numActiveDataPointsUpperBound).
+TRAIN_ROWS = 20_000_263
+PARITY_ROWS = 300_000
+UPPER_BOUND = 65_536
+DESCENT_ITERATIONS = 2
+PARITY_TOL = 5e-3
+# Random-effect entities with at least this many training rows (and both
+# labels) have coefficients the data determines; train_parity holds those.
+WELL_DETERMINED_ROWS = 16
+SEQ = ["fixed", "per-user", "per-item"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -459,6 +491,318 @@ def phase_serve(np, torch, card: str) -> tuple[int, int]:
     return launches, flushes
 
 
+# -- train -----------------------------------------------------------------
+
+def make_train_data(np, rows: int):
+    """Config-4 data at full width from the seed, the last 5% held out
+    for validation (as the flagship does)."""
+    from photon_ml_torch.data import synthetic
+    from photon_ml_torch.data.game_data import from_synthetic
+
+    ds = from_synthetic(synthetic.game_data(
+        np.random.default_rng(SEED), n=rows, d_global=D_GLOBAL,
+        re_specs={"userId": (NUM_USERS, D_RE), "itemId": (NUM_ITEMS, D_RE)},
+        task="logistic"))
+    n_val = max(rows // 20, 1)
+    return (ds.subset(np.arange(rows - n_val)),
+            ds.subset(np.arange(rows - n_val, rows)))
+
+
+def build_coordinates(np, torch, train, device: str):
+    """The three coordinates as the flagship builds them, and each one's
+    staging seconds (bucketing and the copies onto the device)."""
+    from photon_ml_torch.game.coordinates import (FixedEffectCoordinate,
+                                                  RandomEffectCoordinate)
+    from photon_ml_torch.ops import losses
+    from photon_ml_torch.optim import OptimizerConfig
+    from photon_ml_torch.optim.problem import GLMOptimizationConfiguration
+    from photon_ml_torch.optim.regularization import (RegularizationContext,
+                                                      RegularizationType)
+
+    cfg = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(max_iterations=25, tolerance=1e-7),
+        regularization=RegularizationContext(RegularizationType.L2, 1.0))
+
+    def random_effect(re_type):
+        return RandomEffectCoordinate(
+            train, re_type, f"re_{re_type}", losses.LOGISTIC, cfg,
+            upper_bound=UPPER_BOUND, rng=np.random.default_rng(0),
+            device=device)
+
+    builders = (
+        ("fixed", lambda: FixedEffectCoordinate(
+            train, "global", losses.LOGISTIC, cfg, device=device)),
+        ("per-user", lambda: random_effect("userId")),
+        ("per-item", lambda: random_effect("itemId")))
+    coords, seconds = {}, {}
+    for cid, build in builders:
+        t0 = time.perf_counter()
+        coords[cid] = build()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds[cid] = time.perf_counter() - t0
+    return coords, seconds
+
+
+def run_descent(torch, coords, val, device: str):
+    """DESCENT_ITERATIONS outer iterations over SEQ, with the validation
+    AUC after each update; returns (model, history, seconds)."""
+    from photon_ml_torch.evaluation.evaluators import auc
+    from photon_ml_torch.game import descent
+    from photon_ml_torch.types import TaskType
+
+    y_val = torch.as_tensor(val.response, device=device)
+
+    def validation(model):
+        return {"auc": float(auc(model.score(val), y_val))}
+
+    t0 = time.perf_counter()
+    model, history = descent.run(
+        TaskType.LOGISTIC_REGRESSION, coords,
+        descent.CoordinateDescentConfig(SEQ, iterations=DESCENT_ITERATIONS),
+        validation_fn=validation)
+    return model, history, time.perf_counter() - t0
+
+
+def coefficient_tables(model) -> dict:
+    return {"fixed": model.models["fixed"].coefficients.means,
+            "per-user": model.models["per-user"].means,
+            "per-item": model.models["per-item"].means}
+
+
+def phase_train(np, torch, card: str) -> dict:
+    from photon_ml_torch.ops.kernels import re_rows as rr
+    from photon_ml_torch.optim import lbfgs
+
+    t0 = time.perf_counter()
+    train, val = make_train_data(np, TRAIN_ROWS)
+    generate_s = time.perf_counter() - t0
+    coords, staging_s = build_coordinates(np, torch, train, "cuda")
+    waves = {cid: coords[cid].num_waves for cid in SEQ[1:]}
+    torch.cuda.reset_peak_memory_stats()
+    rr.gather_rows.launches = 0  # the training path's run starts
+    rr.scatter_rows_.launches = 0
+    lbfgs.minimize.host_syncs = 0
+    model, history, descent_s = run_descent(torch, coords, val, "cuda")
+    gathers = rr.gather_rows.launches  # ... and ends here
+    scatters = rr.scatter_rows_.launches
+    syncs = lbfgs.minimize.host_syncs
+    peak = torch.cuda.max_memory_allocated()
+    expected = DESCENT_ITERATIONS * sum(waves.values())
+    if gathers != expected or scatters != expected:
+        raise AssertionError(
+            f"train: {gathers} gathers and {scatters} scatters launched, "
+            f"expected {expected} each ({waves} waves x "
+            f"{DESCENT_ITERATIONS} iterations)")
+    for cid, table in coefficient_tables(model).items():
+        if table.device.type != "cuda" or not bool(
+                torch.isfinite(table).all()):
+            raise AssertionError(f"train: {cid} coefficients are not "
+                                 "finite, or not on the card")
+    aucs = [r["validation"]["auc"] for r in history.records]
+    if not aucs[-1] > aucs[0]:
+        raise AssertionError(f"train: final validation AUC {aucs[-1]} is "
+                             f"not above the fixed-effect-only {aucs[0]}")
+    emit("train", card=card, rows=train.num_rows, val_rows=val.num_rows,
+         generate_seconds=generate_s, staging_seconds=staging_s,
+         waves=waves,
+         buckets={cid: [[b.capacity, b.num_entities]
+                        for b in coords[cid].bucketing.buckets]
+                  for cid in SEQ[1:]},
+         updates=[{"iteration": r["iteration"],
+                   "coordinate": r["coordinate"],
+                   "train_seconds": r["train_seconds"],
+                   "auc": r["validation"]["auc"]} for r in history.records],
+         descent_seconds=descent_s,
+         launches={"gather_rows": gathers, "scatter_rows_": scatters},
+         solver_host_syncs=syncs, max_memory_allocated=peak)
+    return {"coords": coords, "model": model, "gathers": gathers,
+            "scatters": scatters}
+
+
+# -- re_rows kernels -------------------------------------------------------
+
+def check_re_rows(torch, rr, W, rows, label: str, timed: bool) -> dict:
+    """gather_rows and scatter_rows_ against their plain versions, bit
+    for bit, on one wave; with ``timed``, the times of kernel, plain
+    version and library call too."""
+    B, d, E = int(rows.shape[0]), int(W.shape[1]), int(W.shape[0])
+    gen = torch.Generator(device="cuda").manual_seed(B * 31 + E)
+    vals = torch.randn((B, d), generator=gen, device="cuda")
+    if not torch.equal(rr.gather_rows(W, rows),
+                       rr.gather_rows_reference(W, rows)):
+        raise AssertionError(f"gather_rows {label} B={B}: not bit-exact")
+    got, want = W.clone(), W.clone()
+    ptr = got.data_ptr()
+    out = rr.scatter_rows_(got, rows, vals)
+    rr.scatter_rows_reference(want, rows, vals)
+    torch.cuda.synchronize()
+    if out.data_ptr() != ptr or not torch.equal(got, want):
+        raise AssertionError(f"scatter_rows_ {label} B={B}: not bit-exact "
+                             "or not in place")
+    valid_mask = rows >= 0
+    valid = int(valid_mask.sum())
+    row = {"wave": label, "B": B, "d": d, "E": E, "valid": valid,
+           "max_abs_err": 0.0}
+    if not timed:
+        return row
+    clamped = rows.clamp(min=0).long()
+    idx, vals_valid = rows[valid_mask].long(), vals[valid_mask]
+
+    def bound(nbytes):
+        return nbytes / PEAK_BYTES_PER_S * 1e3
+
+    # Bytes each call must move: every lane's row read and written (the
+    # gather) or each valid lane's (the scatter), and the B ids.
+    row["gather"] = {
+        "ms": device_ms(torch, lambda: rr.gather_rows(W, rows)),
+        "call_ms": call_ms(torch, lambda: rr.gather_rows(W, rows)),
+        "plain_ms": device_ms(torch,
+                              lambda: rr.gather_rows_reference(W, rows)),
+        "plain_call_ms": call_ms(torch,
+                                 lambda: rr.gather_rows_reference(W, rows)),
+        "library_ms": device_ms(torch,
+                                lambda: torch.index_select(W, 0, clamped)),
+        "bound_ms": bound(2 * B * d * 4 + B * 4), "bound_by": "bytes"}
+    # The plain scatter compacts its valid lanes with a device read, so
+    # it cannot be captured in a graph: its time is per call only.
+    row["scatter"] = {
+        "ms": device_ms(torch, lambda: rr.scatter_rows_(got, rows, vals)),
+        "call_ms": call_ms(torch, lambda: rr.scatter_rows_(got, rows, vals)),
+        "plain_ms": None,
+        "plain_call_ms": call_ms(
+            torch, lambda: rr.scatter_rows_reference(got, rows, vals)),
+        # With no valid lane the library call launches nothing to time.
+        "library_ms": device_ms(
+            torch, lambda: got.index_copy_(0, idx, vals_valid))
+        if valid else None,
+        "bound_ms": bound(2 * valid * d * 4 + B * 4), "bound_by": "bytes"}
+    return row
+
+
+def phase_re_rows(np, torch, trained: dict) -> list[dict]:
+    from photon_ml_torch.ops.kernels import re_rows as rr
+
+    rows_out = []
+    for cid in SEQ[1:]:
+        W = trained["model"].models[cid].means.contiguous()
+        seen = set()
+        for k, rows in enumerate(trained["coords"][cid].wave_rows):
+            B = int(rows.shape[0])
+            rows_out.append(check_re_rows(torch, rr, W, rows,
+                                          f"{cid} wave {k}", B not in seen))
+            seen.add(B)
+        # An all-padding wave: the gather reads row 0, the scatter writes
+        # nothing.
+        pad = torch.full((4096,), -1, dtype=torch.int32, device="cuda")
+        rows_out.append(check_re_rows(torch, rr, W, pad,
+                                      f"{cid} all-padding", True))
+    # The sweep shape: 8,192 lanes of a 65,536 x 512 table, 10% padding.
+    rng = np.random.default_rng(SEED)
+    W = torch.from_numpy(rng.normal(size=(65536, 512)).astype(
+        np.float32)).cuda()
+    ids = rng.permutation(65536)[:8192].astype(np.int32)
+    ids[rng.random(8192) < 0.1] = -1
+    rows_out.append(check_re_rows(torch, rr, W, torch.from_numpy(ids).cuda(),
+                                  "sweep", True))
+    timed = [r for r in rows_out if "gather" in r]
+    emit("kernels", kernel="re_rows", checks=len(rows_out),
+         bit_exact=True, timed_shapes=len(timed), shapes=timed)
+    return rows_out
+
+
+# -- train_parity ----------------------------------------------------------
+
+class RecordedCoordinate:
+    """A coordinate whose train_model calls are recorded: the offsets,
+    the warm start and the trained model of each update."""
+
+    def __init__(self, coord):
+        self.coord = coord
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.coord, name)
+
+    def train_model(self, offsets, initial=None):
+        model = self.coord.train_model(offsets, initial=initial)
+        self.calls.append((offsets.cpu(), initial, model))
+        return model
+
+
+def well_determined(np, coord):
+    """(E,) entities whose coefficients the data pins down: at least
+    WELL_DETERMINED_ROWS training rows, with both labels. At 300,000 rows
+    most entities have one to three rows, and their intercept (not
+    regularized, as in the reference) is not pinned where those rows are,
+    or given the offsets look, separable: the solver drives it towards
+    ±inf until max_iterations and stops at a point set by the last bits
+    of every step. Two CPU runs that differ only in their thread count
+    disagree on those entities as much as cuda and cpu do."""
+    out = np.zeros(coord.num_entities, bool)
+    y = coord.dataset.response
+    for b in coord.bucketing.buckets:
+        live = b.example_idx >= 0
+        lab = y[np.maximum(b.example_idx, 0)]
+        mixed = (live & (lab > 0.5)).any(1) & (live & (lab < 0.5)).any(1)
+        ok = (b.entity_rows >= 0) & mixed & (b.counts >= WELL_DETERMINED_ROWS)
+        out[b.entity_rows[ok]] = True
+    return out
+
+
+def compare_update(np, coord, got, want) -> dict:
+    """Largest coefficient difference of one update: over the whole
+    table ("all") and over what the check holds ("held"): the fixed
+    effect in full, a random effect's well-determined entities."""
+    if hasattr(got, "coefficients"):
+        diff = (got.coefficients.means.cpu()
+                - want.coefficients.means.cpu()).abs().numpy()
+        return {"all": float(diff.max()), "held": float(diff.max())}
+    diff = (got.means.cpu() - want.means.cpu()).abs().numpy()
+    held = well_determined(np, coord)
+    return {"all": float(diff.max()), "held": float(diff[held].max()),
+            "held_entities": int(held.sum()),
+            "trained_entities": int(coord.bucketing.trained_entities.sum())}
+
+
+def phase_train_parity(np, torch, card: str) -> None:
+    """The descent on the card and on the CPU. Each update of the card's
+    run is replayed on the CPU from the same offsets and warm start and
+    compared there: the two descents' own paths may part at entities the
+    data does not determine, and every later update would inherit that."""
+    train, val = make_train_data(np, PARITY_ROWS)
+    cuda_coords, _ = build_coordinates(np, torch, train, "cuda")
+    recorded = {cid: RecordedCoordinate(c) for cid, c in cuda_coords.items()}
+    cuda_model, cuda_hist, cuda_s = run_descent(torch, recorded, val, "cuda")
+    cpu_coords, _ = build_coordinates(np, torch, train, "cpu")
+    cpu_model, cpu_hist, cpu_s = run_descent(torch, cpu_coords, val, "cpu")
+    updates = []
+    for cid in SEQ:
+        for k, (offsets, initial, got) in enumerate(recorded[cid].calls):
+            want = cpu_coords[cid].train_model(offsets, initial=initial)
+            updates.append({"coordinate": cid, "iteration": k,
+                            **compare_update(np, cpu_coords[cid], got,
+                                             want)})
+    auc_cuda = [r["validation"]["auc"] for r in cuda_hist.records]
+    auc_cpu = [r["validation"]["auc"] for r in cpu_hist.records]
+    auc_diff = float(np.max(np.abs(np.subtract(auc_cuda, auc_cpu))))
+    p_diff = (torch.sigmoid(cuda_model.score(val)).cpu()
+              - torch.sigmoid(cpu_model.score(val)).cpu()).abs()
+    emit("train_parity", card=card, rows=train.num_rows, updates=updates,
+         auc_cuda=auc_cuda, auc_cpu=auc_cpu, max_auc_diff=auc_diff,
+         val_probability_diff={"mean": float(p_diff.mean()),
+                               "max": float(p_diff.max())},
+         descent_seconds={"cuda": cuda_s, "cpu": cpu_s},
+         tolerance=PARITY_TOL, well_determined_rows=WELL_DETERMINED_ROWS)
+    bad = [u for u in updates if not u["held"] <= PARITY_TOL]
+    if bad or not auc_diff <= PARITY_TOL \
+            or not float(p_diff.mean()) <= PARITY_TOL:
+        raise AssertionError(
+            f"train_parity: cuda and cpu differ beyond {PARITY_TOL}: "
+            f"updates {bad}, AUC {auc_diff}, mean validation probability "
+            f"{float(p_diff.mean())}")
+
+
 def main() -> int:
     import torch
 
@@ -489,10 +833,17 @@ def main() -> int:
 
     checks = phase_kernels(torch, np)
     launches, flushes = phase_serve(np, torch, card)
+    trained = phase_train(np, torch, card)
+    re_checks = phase_re_rows(np, torch, trained)
+    re_launches = {"gather": trained["gathers"],
+                   "scatter": trained["scatters"]}
+    del trained
+    torch.cuda.empty_cache()
+    phase_train_parity(np, torch, card)
 
     main_shape = next(c for c in checks if c["n"] == 64
                       and c["cache"] == "float32")
-    print(json.dumps({"kernels": [{
+    table = [{
         "name": "serving_score", "route": "cuda",
         "source": "photon_ml_torch/csrc/serving_score.cu",
         "replaces": "photon_ml_tpu/ops/kernels/serving_score.py:45",
@@ -503,7 +854,32 @@ def main() -> int:
         "bound_by": main_shape["bound_by"], "library_ms": None,
         "call_ms": main_shape["call_ms"],
         "shape": "n=64 d=8 E=4097 float32 (serving, config a)",
-        "flushes": flushes, "checks": checks}]}), flush=True)
+        "flushes": flushes, "checks": checks}]
+    # The re_rows entries report the largest per-user wave, the shape
+    # that carries most of the training path's lanes.
+    timed = [c for c in re_checks if "gather" in c]
+    main_wave = max((c for c in timed if c["wave"].startswith("per-user")
+                     and "padding" not in c["wave"]), key=lambda c: c["B"])
+    shape = (f"B={main_wave['B']} d={main_wave['d']} E={main_wave['E']} "
+             f"({main_wave['wave']}, {main_wave['valid']} valid lanes)")
+    for name, key, line, plain_key in (
+            ("re_gather_rows", "gather", 60, "plain_ms"),
+            ("re_scatter_rows", "scatter", 90, "plain_call_ms")):
+        m = main_wave[key]
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "photon_ml_torch/csrc/re_rows.cu",
+            "replaces": f"photon_ml_tpu/ops/kernels/re_rows.py:{line}",
+            "launches": re_launches[key], "max_abs_err": 0.0,
+            "ms": m["ms"], "plain_ms": m[plain_key],
+            "plain_timing": ("graph replay" if plain_key == "plain_ms" else
+                             "per call from Python: the plain scatter reads "
+                             "the device to compact its valid lanes"),
+            "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "call_ms": m["call_ms"], "shape": shape,
+            "checks": len(re_checks)})
+    print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
