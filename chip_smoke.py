@@ -42,6 +42,32 @@ code is non-zero:
              offsets and warm start, the fixed effect's coefficients and
              those of every random-effect entity the data determines
              (16+ rows, both labels).
+8. sparse_train — the config-5 path: Criteo-shaped sparse data from a
+             seed (10,000,000 rows, d = 1,000,000, 32 slots, Zipf(1.3)
+             columns; 5% held out), fitted through GameEstimator.fit with
+             one ELL sparse fixed effect (L-BFGS, 60 iterations, L2 1.0)
+             and validation AUC; then a TRON fit of the same coordinate.
+             ell_scatter's launch count is read around each fit alone and
+             must equal the solver's objective evaluations.
+9. kernels — holds ell_scatter against its plain version on the card at
+             the main path's shape (with the fit's own row terms), at
+             d = 512 and 2048, with uniform ids over d = 1M (short
+             columns), bit for bit on integer-valued row terms, on an
+             all-padding batch and with one column in every row: each
+             column within 1e-5 · Σ|terms| of its exact (float64)
+             sum, and the column check shown to reject sums of
+             bfloat16-rounded row terms; two
+             launches must give the same bits. Times kernel, plain version
+             and library call at the main shape.
+10. sparse_parity — the same fit at 300,000 rows on the card and on the
+             CPU in one process: every coefficient within 5e-3 after 10
+             iterations; every objective evaluation of the card's
+             60-iteration fit replayed on the CPU from the same iterate
+             (value within 1e-5 relative, each gradient column within
+             1e-5 of its Σ|r·x| plus 2^-21 of its Σ w·|x|, the row
+             terms' own float32 resolution); and the 60-iteration fits'
+             validation AUC within 5e-3 (their coefficients are reported,
+             beside the CPU's spread over a reversed row order).
 
 Then it prints the kernel table ({"kernels": [...]}), nvidia-smi's
 "name, power.limit" line, and as its last line
@@ -91,6 +117,47 @@ PARITY_TOL = 5e-3
 # labels) have coefficients the data determines; train_parity holds those.
 WELL_DETERMINED_ROWS = 16
 SEQ = ["fixed", "per-user", "per-item"]
+
+# Config 5 (BASELINE "Criteo-1TB CTR: 1M-feature sparse GAME logistic",
+# in memory, fixed effect only): bench.py's bench_sparse width (d = 1M,
+# 32 slots, data/sparse.synthetic_sparse's Zipf(1.3) columns) at the
+# in-memory row scale of bench_host_staging (10M rows), fitted as
+# examples/sparse_criteo_style.py fits it: L-BFGS, 60 iterations,
+# tolerance 1e-7, L2 1.0.
+SPARSE_ROWS = 10_000_000
+SPARSE_DIM = 1_000_000
+SPARSE_NNZ = 32
+SPARSE_PARITY_ROWS = 300_000
+SPARSE_ITERATIONS = 60
+# TRON's outer iterations: each runs up to 20 CG steps, one H·v apiece.
+TRON_ITERATIONS = 20
+# sparse_parity holds every coefficient over this many iterations, before
+# the card's and the CPU's line searches part (see phase_sparse_parity).
+PARITY_EARLY_ITERATIONS = 10
+# The docs/KERNELS.md gate: max |kernel − plain| / max |plain|.
+PARITY_REL = 1e-3
+# Each column on its own: the kernel's float32 sum may differ from the
+# column's exact sum (the plain version in float64) by COLUMN_TOL ·
+# Σ|terms| of that column (≈ 84 float32 epsilons; the form the
+# serving_score check uses). A column of one entry must then match bit for
+# bit, which a kernel that read its row terms in bfloat16 (2^-9 relative)
+# could not; every real-valued fixture shows that it fails. The exact sum,
+# not the float32 plain version, is the yardstick, because at the main
+# shape the plain version's own error on the Zipf head (9.5M atomic adds in
+# a varying order) is a third of this allowance and changes run to run.
+COLUMN_TOL = 1e-5
+# sparse_parity replays every card evaluation of the full fit on the CPU
+# from the same iterate: the objective value within this relative gap, and
+# each gradient column within COLUMN_TOL · Σ_i |r_i · x_ic| plus
+# REPLAY_ROW_ABS · Σ_i w_i · |x_ic|. The second term is the row terms'
+# own resolution: r_i = w_i · (σ(z_i) − y_i) comes from a float32
+# probability, whose steps near 1 are 2^-24 apart. Margins that differ in
+# their last bits (another summation order) and the card's and the CPU's
+# sigmoid can land it a few steps apart (two, over reversed rows and
+# slots on the CPU); where σ(z) is within 1e-4 of the label, one step is
+# 6e-4 of r_i. The allowance is eight steps.
+REPLAY_VALUE_RTOL = 1e-5
+REPLAY_ROW_ABS = 2.0 ** -21
 
 
 def emit(phase: str, **fields) -> None:
@@ -803,6 +870,400 @@ def phase_train_parity(np, torch, card: str) -> None:
             f"{float(p_diff.mean())}")
 
 
+# -- sparse_train ----------------------------------------------------------
+
+def make_sparse_data(np, rows: int):
+    """Config-5 data from the seed, the last 5% held out; the split is
+    two row-slice views of the generated arrays."""
+    from photon_ml_torch.data import sparse
+    from photon_ml_torch.data.game_data import from_sparse_batch
+
+    batch, _ = sparse.synthetic_sparse(n=rows, num_features=SPARSE_DIM,
+                                       nnz_per_row=SPARSE_NNZ, seed=SEED)
+    ds = from_sparse_batch(batch)
+    n_val = max(rows // 20, 1)
+    return (ds.subset(slice(0, rows - n_val)),
+            ds.subset(slice(rows - n_val, rows)))
+
+
+def sparse_estimator(device: str, optimizer: str = "LBFGS",
+                     iterations: int = SPARSE_ITERATIONS):
+    """GameEstimator with one ELL sparse fixed effect "ctr", as
+    examples/sparse_criteo_style.py builds it (hybrid=False: the layout
+    that reaches the ell_scatter kernel)."""
+    from photon_ml_torch.api.configs import (CoordinateConfiguration,
+                                             FixedEffectDataConfiguration)
+    from photon_ml_torch.api.estimator import GameEstimator
+    from photon_ml_torch.optim import OptimizerConfig, OptimizerType
+    from photon_ml_torch.optim.problem import GLMOptimizationConfiguration
+    from photon_ml_torch.optim.regularization import (RegularizationContext,
+                                                      RegularizationType)
+    from photon_ml_torch.types import TaskType
+
+    return GameEstimator(
+        task=TaskType.LOGISTIC_REGRESSION,
+        coordinates={"ctr": CoordinateConfiguration(
+            data=FixedEffectDataConfiguration("global", hybrid=False),
+            optimization=GLMOptimizationConfiguration(
+                optimizer=OptimizerConfig(
+                    optimizer_type=OptimizerType(optimizer),
+                    max_iterations=iterations, tolerance=1e-7),
+                regularization=RegularizationContext(
+                    RegularizationType.L2, 1.0)))},
+        update_sequence=["ctr"], device=device,
+        validation_evaluators=["AUC"])
+
+
+def timed_fit(torch, est, train, val, device: str) -> tuple:
+    """One GameEstimator.fit and its seconds, ending with the device
+    synchronized."""
+    t0 = time.perf_counter()
+    result = est.fit(train, validation_data=val)[0]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def check_sparse_fit(torch, result, label: str) -> dict:
+    means = result.model.models["ctr"].coefficients.means
+    auc_val = result.evaluation.metrics["AUC"]
+    if means.device.type != "cuda" or not bool(torch.isfinite(means).all()):
+        raise AssertionError(f"{label}: coefficients are not finite, or not "
+                             "on the card")
+    if not 0.5 < auc_val <= 1.0:
+        raise AssertionError(f"{label}: validation AUC {auc_val} is not "
+                             "above 0.5")
+    record = result.history.records[-1]
+    return {"auc": auc_val, "train_seconds": record["train_seconds"],
+            **record["solver"]}
+
+
+def phase_sparse_train(np, torch, card: str) -> dict:
+    import copy
+
+    from photon_ml_torch.ops.kernels import ell_scatter
+
+    t0 = time.perf_counter()
+    train, val = make_sparse_data(np, SPARSE_ROWS)
+    generate_s = time.perf_counter() - t0
+    est = sparse_estimator("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ell_scatter.scatter_rowterm.launches = 0  # the main path's run starts
+    result, fit_s = timed_fit(torch, est, train, val, "cuda")
+    launches = ell_scatter.scatter_rowterm.launches  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    fit = check_sparse_fit(torch, result, "sparse_train")
+    if launches != fit["gradient_evaluations"]:
+        raise AssertionError(
+            f"sparse_train: ell_scatter launched {launches} times for "
+            f"{fit['gradient_evaluations']} gradient evaluations")
+    coord = est.coordinates["ctr"]
+    layout = coord.staged.layout
+    # TRON on the same staged coordinate: the estimator's coordinate cache
+    # swaps the optimization config, so nothing is staged again.
+    tron_est = copy.copy(est)
+    tron_est.coordinate_configs = sparse_estimator(
+        "cuda", "TRON", TRON_ITERATIONS).coordinate_configs
+    ell_scatter.scatter_rowterm.launches = 0  # the TRON run starts
+    tron_result, tron_s = timed_fit(torch, tron_est, train, val, "cuda")
+    tron_launches = ell_scatter.scatter_rowterm.launches  # ... and ends
+    tron = check_sparse_fit(torch, tron_result, "sparse_train TRON")
+    if tron_launches != tron["gradient_evaluations"] \
+            + tron["hessian_vector_products"]:
+        raise AssertionError(
+            f"sparse_train TRON: ell_scatter launched {tron_launches} times "
+            f"for {tron['gradient_evaluations']} gradient evaluations and "
+            f"{tron['hessian_vector_products']} H.v products")
+    col_len = layout.col_ptr[1:] - layout.col_ptr[:-1]
+    emit("sparse_train", card=card, rows=train.num_rows,
+         val_rows=val.num_rows, dim=SPARSE_DIM, slots=SPARSE_NNZ,
+         valid_slots=layout.nnz, pieces=layout.num_pieces,
+         longest_column=int(col_len.max()),
+         columns_over_32=int((col_len > 32).sum()),
+         empty_columns=int((col_len == 0).sum()),
+         generate_seconds=generate_s,
+         staging_and_layout_seconds=coord.staging_seconds,
+         fit_seconds=fit_s, lbfgs=fit, launches=launches,
+         max_memory_allocated=peak,
+         tron={**tron, "fit_seconds": tron_s, "launches": tron_launches})
+    return {"coord": coord, "model": result.model, "launches": launches,
+            "tron_launches": tron_launches}
+
+
+# -- ell_scatter kernels ---------------------------------------------------
+
+def column_ratio(torch, got, want, allowed) -> float:
+    """max over columns of |got − want| / allowed: 1 is the limit, and a
+    column allowed nothing must match exactly."""
+    if got.numel() == 0:
+        return 0.0
+    excess = (got - want).abs()
+    ratio = torch.where(excess == 0, torch.zeros_like(excess),
+                        excess / allowed)
+    return float(ratio.max())
+
+
+def exact_sums(torch, indices, rv, dim):
+    """The plain version in float64: each column's sum, exact to far below
+    a float32 step."""
+    out = torch.zeros(dim + 1, dtype=torch.float64, device=rv.device)
+    out.index_add_(0, indices.reshape(-1).long().clamp(max=dim),
+                   rv.reshape(-1).double())
+    return out[:dim]
+
+
+def check_ell_scatter(torch, es, indices, rv, dim, layout, label: str,
+                      timed: bool, exact: bool = False) -> dict:
+    """The kernel against its plain version at one shape: within
+    PARITY_REL of it (bit for bit when ``exact``), each column within
+    COLUMN_TOL · Σ|terms| of its exact sum, two launches with the same
+    bits, and, on real-valued terms, the column check shown to reject the
+    kernel's sums over the terms rounded to bfloat16; with ``timed``, the
+    times of kernel, plain version and library call too."""
+    got = es.scatter_rowterm(indices, rv, dim, layout=layout)
+    again = es.scatter_rowterm(indices, rv, dim, layout=layout)
+    want = es.scatter_rowterm_reference(indices, rv, dim)
+    true = exact_sums(torch, indices, rv, dim)
+    mag = exact_sums(torch, indices, rv.abs(), dim)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if dim else 0.0
+    scale = float(want.abs().max()) if dim else 0.0
+    rel = err / max(scale, 1e-9)
+    ratio = column_ratio(torch, got.double(), true, COLUMN_TOL * mag)
+    plain_ratio = column_ratio(torch, want.double(), true, COLUMN_TOL * mag)
+    if not torch.equal(got, again):
+        raise AssertionError(f"ell_scatter {label}: two launches differ")
+    if exact and not torch.equal(got, want):
+        raise AssertionError(f"ell_scatter {label}: not bit-exact on "
+                             f"integer row terms (max |err| {err})")
+    if not (rel <= PARITY_REL and ratio <= 1.0):
+        raise AssertionError(
+            f"ell_scatter {label}: parity_rel {rel} (limit {PARITY_REL}), "
+            f"worst column at {ratio} of {COLUMN_TOL} · Σ|terms|")
+    bf16_ratio = None
+    if not exact:
+        coarse = es.scatter_rowterm(indices, rv.bfloat16().float(), dim,
+                                    layout=layout)
+        bf16_ratio = column_ratio(torch, coarse.double(), true,
+                                  COLUMN_TOL * mag)
+        del coarse
+        if not bf16_ratio > 1.0:
+            raise AssertionError(
+                f"ell_scatter {label}: the column check would pass sums of "
+                f"bfloat16 row terms (worst column at {bf16_ratio})")
+    del want, true, mag, again
+    n, k = (int(x) for x in indices.shape)
+    row = {"shape": label, "n": n, "k": k, "dim": dim, "nnz": layout.nnz,
+           "pieces": layout.num_pieces, "max_abs_err": err,
+           "parity_rel": rel, "column_ratio": ratio,
+           "plain_column_ratio": plain_ratio,
+           "bf16_column_ratio": bf16_ratio, "bit_exact": err == 0.0}
+    if not timed:
+        return row
+    flat_ids = indices.reshape(-1).long().clamp(max=dim)
+    flat_rv = rv.reshape(-1)
+    # Bytes the function must move: the ids and row terms read once, the
+    # (dim,) sums written once (one add per slot: bytes bound it).
+    nbytes = n * k * 8 + dim * 4
+    row.update({
+        "ms": device_ms(torch, lambda: es.scatter_rowterm(
+            indices, rv, dim, layout=layout), reps=7, inner=10),
+        "call_ms": call_ms(torch, lambda: es.scatter_rowterm(
+            indices, rv, dim, layout=layout), reps=7, inner=10),
+        "plain_ms": device_ms(torch, lambda: es.scatter_rowterm_reference(
+            indices, rv, dim), reps=5, inner=3),
+        "library_ms": device_ms(torch, lambda: torch.zeros(
+            dim + 1, device="cuda").index_add_(0, flat_ids, flat_rv),
+            reps=5, inner=3),
+        "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": nbytes})
+    return row
+
+
+def phase_ell_scatter(np, torch, trained: dict) -> list[dict]:
+    from photon_ml_torch.data import sparse
+    from photon_ml_torch.ops import sparse_aggregators as sagg
+    from photon_ml_torch.ops.kernels import ell_scatter as es
+
+    coord = trained["coord"]
+    batch = coord.staged
+    dim = batch.num_features
+    # The main path's row terms: r ⊗ values at the fitted coefficients,
+    # exactly what the last gradient evaluation scattered.
+    means = trained["model"].models["ctr"].coefficients.means
+    z = sagg.margins(batch, means)
+    _, dl = coord.loss.loss_and_dz(z, batch.labels)
+    r = torch.where(batch.weights > 0, batch.weights * dl,
+                    torch.zeros_like(dl))
+    rv = r[:, None] * batch.values
+    rows = [check_ell_scatter(torch, es, batch.indices, rv, dim,
+                              batch.layout, "main path", True)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rv_int = torch.randint(-8, 9, rv.shape, generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.float32)
+    rows.append(check_ell_scatter(torch, es, batch.indices, rv_int, dim,
+                                  batch.layout, "main path, integer",
+                                  False, exact=True))
+    del r, rv, rv_int, z, dl
+    torch.cuda.empty_cache()
+    # The regime in which the JAX package runs its Pallas kernel.
+    for small_dim in (512, 2048):
+        b = sparse.synthetic_sparse(
+            n=65_536, num_features=small_dim, nnz_per_row=SPARSE_NNZ,
+            seed=SEED)[0].to("cuda")
+        r = torch.randn(b.num_rows, generator=gen, device="cuda")
+        rows.append(check_ell_scatter(
+            torch, es, b.indices, r[:, None] * b.values, small_dim,
+            b.layout, f"d={small_dim}", True))
+    # Uniform ids over d = 1M (short columns, most of one or two entries)
+    # with normal row terms, which bfloat16 cannot hold.
+    uni = torch.randint(0, dim, (65_536, SPARSE_NNZ), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    uni[torch.rand(uni.shape, generator=gen, device="cuda") < 0.1] = dim
+    rows.append(check_ell_scatter(
+        torch, es, uni, torch.randn(uni.shape, generator=gen, device="cuda"),
+        dim, es.build_layout(uni, dim), "uniform ids, short columns", False))
+    # All padding: every slot at the sentinel, every column empty.
+    pad = torch.full((4096, SPARSE_NNZ), dim, dtype=torch.int32,
+                     device="cuda")
+    rows.append(check_ell_scatter(
+        torch, es, pad, torch.randn(pad.shape, generator=gen, device="cuda"),
+        dim, es.build_layout(pad, dim), "all padding", False, exact=True))
+    # One column in every row (the Zipf head, alone): the longest segment.
+    one = torch.randint(0, dim, (1_000_000, 8), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    one[:, 0] = 7
+    one[:, 1] = dim  # and a padding slot in every row
+    rows.append(check_ell_scatter(
+        torch, es, one, torch.randn(one.shape, generator=gen, device="cuda"),
+        dim, es.build_layout(one, dim), "one column in every row", False))
+    emit("kernels", kernel="ell_scatter", checks=len(rows), shapes=rows)
+    return rows
+
+
+# -- sparse_parity ---------------------------------------------------------
+
+class EvaluationLog:
+    """Records every objective evaluation of the sparse fit while it is
+    open: ``optim.sparse_problem`` calls
+    ``ops.sparse_aggregators.value_and_gradient`` once per evaluation, and
+    each (iterate, value, gradient) is kept on the host."""
+
+    def __init__(self, sagg):
+        self.sagg = sagg
+        self.inner = sagg.value_and_gradient
+        self.calls = []
+
+    def __enter__(self):
+        def recorded(loss, means, batch):
+            value, grad = self.inner(loss, means, batch)
+            self.calls.append((means.cpu(), value.cpu(), grad.cpu()))
+            return value, grad
+
+        self.sagg.value_and_gradient = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.sagg.value_and_gradient = self.inner
+
+
+def replay_on_cpu(torch, coord, calls) -> dict:
+    """Each recorded card evaluation computed again on the CPU coordinate's
+    staged batch from the same iterate: the value's relative gap and the
+    worst gradient column against its allowance (REPLAY_ROW_ABS)."""
+    from photon_ml_torch.ops import sparse_aggregators as sagg
+    from photon_ml_torch.ops.kernels import ell_scatter as es
+
+    batch, loss = coord.staged, coord.loss
+    value_gap, column = 0.0, 0.0
+    for w, value, grad in calls:
+        v_cpu, g_cpu = sagg.value_and_gradient(loss, w, batch)
+        _, dl = loss.loss_and_dz(sagg.margins(batch, w), batch.labels)
+        r = torch.where(batch.weights > 0, batch.weights * dl,
+                        torch.zeros_like(dl))
+        w_pos = torch.where(batch.weights > 0, batch.weights,
+                            torch.zeros_like(r))
+        allowed = es.scatter_rowterm_reference(
+            batch.indices, (COLUMN_TOL * r.abs() + REPLAY_ROW_ABS * w_pos)
+            [:, None] * batch.values.abs(), batch.num_features)
+        value_gap = max(value_gap, abs(float(value - v_cpu))
+                        / abs(float(v_cpu)))
+        column = max(column, column_ratio(torch, grad, g_cpu, allowed))
+    return {"evaluations": len(calls), "value_rel_gap": value_gap,
+            "gradient_column_ratio": column}
+
+
+def phase_sparse_parity(np, torch, card: str) -> None:
+    """The config-5 fit at 300,000 rows on the card and on the CPU.
+
+    With L2 every coefficient has one optimum, but 60 L-BFGS iterations
+    do not reach it on this ill-conditioned problem (a column in every
+    row, a tail of columns seen once), and where each run stops depends
+    on the last bits of every line search: the CPU's own fit over the
+    same rows in reverse order is reported beside the card's as that
+    spread. So every coefficient is held within PARITY_TOL over the
+    first PARITY_EARLY_ITERATIONS iterations, where the two paths have
+    not parted; every objective evaluation of the card's full fit is
+    replayed on the CPU from the same iterate and held within
+    REPLAY_VALUE_RTOL (value) and each gradient column's allowance; and
+    the full fits' validation AUCs are held within PARITY_TOL."""
+    from photon_ml_torch.ops import sparse_aggregators as sagg
+
+    train, val = make_sparse_data(np, SPARSE_PARITY_ROWS)
+    reverse = train.subset(np.arange(train.num_rows)[::-1].copy())
+
+    def fit(device, data, iterations, log=None):
+        est = sparse_estimator(device, iterations=iterations)
+        if log is None:
+            result, seconds = timed_fit(torch, est, data, val, device)
+        else:
+            with log:
+                result, seconds = timed_fit(torch, est, data, val, device)
+        return (result.model.models["ctr"].coefficients.means.cpu(),
+                result.evaluation.metrics["AUC"],
+                result.history.records[-1]["solver"], seconds,
+                est.coordinates["ctr"])
+
+    early = {d: fit(d, train, PARITY_EARLY_ITERATIONS)
+             for d in ("cuda", "cpu")}
+    log = EvaluationLog(sagg)
+    full = {"cuda": fit("cuda", train, SPARSE_ITERATIONS, log),
+            "cpu": fit("cpu", train, SPARSE_ITERATIONS)}
+    full["cpu, rows reversed"] = fit("cpu", reverse, SPARSE_ITERATIONS)
+    replay = replay_on_cpu(torch, full["cpu"][4], log.calls)
+    early_diff = float((early["cuda"][0] - early["cpu"][0]).abs().max())
+    auc_diff = abs(full["cuda"][1] - full["cpu"][1])
+    emit("sparse_parity", card=card, rows=train.num_rows,
+         early_iterations=PARITY_EARLY_ITERATIONS,
+         early_coefficient_max_diff=early_diff,
+         full_coefficient_max_diff={
+             "cuda vs cpu": float((full["cuda"][0]
+                                   - full["cpu"][0]).abs().max()),
+             "cpu vs cpu, rows reversed": float(
+                 (full["cpu"][0] - full["cpu, rows reversed"][0])
+                 .abs().max())},
+         replay=replay, auc_diff=auc_diff,
+         auc={k: v[1] for k, v in full.items()},
+         solver={k: v[2] for k, v in full.items()},
+         fit_seconds={k: v[3] for k, v in full.items()},
+         tolerance=PARITY_TOL)
+    if replay["evaluations"] != full["cuda"][2]["gradient_evaluations"]:
+        raise AssertionError(
+            f"sparse_parity: recorded {replay['evaluations']} card "
+            f"evaluations, the solver reports "
+            f"{full['cuda'][2]['gradient_evaluations']}")
+    if not (early_diff <= PARITY_TOL and auc_diff <= PARITY_TOL
+            and replay["value_rel_gap"] <= REPLAY_VALUE_RTOL
+            and replay["gradient_column_ratio"] <= 1.0):
+        raise AssertionError(
+            f"sparse_parity: cuda and cpu differ: coefficients after "
+            f"{PARITY_EARLY_ITERATIONS} iterations {early_diff} and "
+            f"validation AUC {auc_diff} (limit {PARITY_TOL}); replayed "
+            f"values {replay['value_rel_gap']} (limit "
+            f"{REPLAY_VALUE_RTOL}), worst gradient column at "
+            f"{replay['gradient_column_ratio']} of its limit")
+
+
 def main() -> int:
     import torch
 
@@ -840,6 +1301,13 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     phase_train_parity(np, torch, card)
+    sparse_trained = phase_sparse_train(np, torch, card)
+    ell_checks = phase_ell_scatter(np, torch, sparse_trained)
+    sparse_launches = {"lbfgs": sparse_trained["launches"],
+                       "tron": sparse_trained["tron_launches"]}
+    del sparse_trained
+    torch.cuda.empty_cache()
+    phase_sparse_parity(np, torch, card)
 
     main_shape = next(c for c in checks if c["n"] == 64
                       and c["cache"] == "float32")
@@ -879,7 +1347,33 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "call_ms": m["call_ms"], "shape": shape,
             "checks": len(re_checks)})
-    print(json.dumps({"kernels": table}), flush=True)
+    main_ell = ell_checks[0]
+    table.append({
+        "name": "ell_scatter", "route": "cuda",
+        "source": "photon_ml_torch/csrc/ell_scatter.cu",
+        "replaces": "photon_ml_tpu/ops/kernels/ell_scatter.py:68",
+        "launches": sparse_launches["lbfgs"],
+        "tron_launches": sparse_launches["tron"],
+        "max_abs_err": max(c["max_abs_err"] for c in ell_checks),
+        "parity_rel": max(c["parity_rel"] for c in ell_checks),
+        "column_ratio": max(c["column_ratio"] for c in ell_checks),
+        "ms": main_ell["ms"], "plain_ms": main_ell["plain_ms"],
+        "bound_ms": main_ell["bound_ms"], "bound_by": main_ell["bound_by"],
+        "library_ms": main_ell["library_ms"],
+        "library_call": "Tensor.index_add_ (ids clamped outside)",
+        "call_ms": main_ell["call_ms"],
+        "shape": (f"n={main_ell['n']} k={main_ell['k']} "
+                  f"dim={main_ell['dim']} (sparse_train gradient)"),
+        "checks": len(ell_checks)})
+    # The TPU kernels the port has not reached yet (ROADMAP.md §B).
+    to_port = [
+        {"replaces": "photon_ml_tpu/ops/kernels/stream_fused.py:61",
+         "name": "hot_margins_pallas", "slice": 5},
+        {"replaces": "photon_ml_tpu/ops/kernels/stream_fused.py:112",
+         "name": "hot_rmatvec_pallas", "slice": 5},
+        {"replaces": "dev-scripts/exp_cold_gather.py:58",
+         "name": "fused_cold_grad", "slice": 7}]
+    print(json.dumps({"kernels": table, "to_port": to_port}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

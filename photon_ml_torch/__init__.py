@@ -10,3 +10,11 @@ Entry points run on the CUDA card unless the caller passes
 a ported path is a hand-written Hopper kernel under ``csrc/``, with a
 plain PyTorch version beside its wrapper in ``ops/kernels/``.
 """
+
+
+def not_ported(what: str, slice_no: int) -> NotImplementedError:
+    """The error an option of the JAX package that the port does not have
+    yet raises: what it is, and the slice of the port (ROADMAP.md §A)
+    that brings it."""
+    return NotImplementedError(f"{what} is not ported yet: it comes with "
+                               f"slice {slice_no} of the port")

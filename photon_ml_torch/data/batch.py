@@ -20,14 +20,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from photon_ml_torch import not_ported
+
 Tensor = torch.Tensor
 
 
 def check_feature_dtype(feature_dtype) -> None:
     if feature_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(
-            f"feature_dtype {feature_dtype!r}: the port stores features in "
-            "float32 only; bf16 feature storage is slice 3 of the port")
+        raise not_ported(f"feature_dtype {feature_dtype!r} (the port stores "
+                         "features in float32 only)", 6)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -76,6 +76,27 @@ class GameDataset:
         )
 
 
+def from_sparse_batch(batch, shard_id: str = "global") -> GameDataset:
+    """Adapter: one ``data/sparse.py`` SparseBatch → single-shard
+    GameDataset (the Criteo fixed-effect-only configuration, BASELINE
+    config 5). The batch's host tensors become numpy views, not copies."""
+    def host(t):
+        return np.asarray(t.cpu().numpy() if hasattr(t, "numpy") else t)
+
+    return GameDataset(
+        response=host(batch.labels),
+        offsets=host(batch.offsets),
+        weights=host(batch.weights),
+        feature_shards={shard_id: SparseShard(
+            indices=host(batch.indices),
+            values=host(batch.values),
+            num_features=int(batch.num_features))},
+        entity_ids={},
+        num_entities={},
+        intercept_index={},
+    )
+
+
 def from_synthetic(syn) -> GameDataset:
     """Adapter from data/synthetic.py SyntheticGameData."""
     shards = {"global": syn.X_global}

@@ -2,8 +2,8 @@
 
 Port of ``photon_ml_tpu/game/coordinates/``. Reference parity: photon-api
 ``algorithm/Coordinate.scala``, ``FixedEffectCoordinate.scala`` (one GLM
-fit over the whole dataset) and ``RandomEffectCoordinate.scala``
-(per-entity local GLM fits).
+fit over the whole dataset, over a dense or an ELL sparse shard) and
+``RandomEffectCoordinate.scala`` (per-entity local GLM fits).
 
 Residency: each coordinate stages its data on its device once, in
 ``__init__``; per coordinate-descent step the only new inputs are the
@@ -16,5 +16,8 @@ are passed explicitly rather than mutating a dataset).
 from photon_ml_torch.game.coordinates.fixed import FixedEffectCoordinate
 from photon_ml_torch.game.coordinates.random_effect import \
     RandomEffectCoordinate
+from photon_ml_torch.game.coordinates.sparse_fixed import \
+    SparseFixedEffectCoordinate
 
-__all__ = ["FixedEffectCoordinate", "RandomEffectCoordinate"]
+__all__ = ["FixedEffectCoordinate", "RandomEffectCoordinate",
+           "SparseFixedEffectCoordinate"]

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from photon_ml_torch import not_ported
 from photon_ml_torch.data.batch import LabeledBatch
 from photon_ml_torch.data.game_data import GameDataset
 from photon_ml_torch.device import DeviceLike, resolve_device
@@ -59,9 +60,7 @@ class FixedEffectCoordinate:
     @staticmethod
     def _check_config(config: GLMOptimizationConfiguration) -> None:
         if config.down_sampling_rate < 1.0:
-            raise NotImplementedError(
-                "down-sampling is not ported yet: it comes with slice 3 of "
-                "the port")
+            raise not_ported("down-sampling", 6)
 
     @property
     def dim(self) -> int:

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_ml_torch import not_ported
 from photon_ml_torch.data.batch import LabeledBatch, check_feature_dtype
 from photon_ml_torch.data.game_data import GameDataset, SparseShard
 from photon_ml_torch.device import DeviceLike, resolve_device
@@ -61,11 +62,6 @@ class _Wave:
     rows: Tensor  # (B,) int32 entity rows, −1 on padding lanes
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               "slice 3 of the port")
-
-
 class RandomEffectCoordinate:
     """Per-entity GLMs trained as lane-batched bucket solves.
 
@@ -98,12 +94,12 @@ class RandomEffectCoordinate:
         check_feature_dtype(feature_dtype)
         shard = dataset.feature_shards[shard_id]
         if isinstance(shard, SparseShard):
-            raise _not_ported("a sparse random-effect shard")
+            raise not_ported("a sparse random-effect shard", 6)
         if projection or features_to_samples_ratio is not None \
                 or subspace_model:
-            raise _not_ported("the projected (subspace) random effect")
+            raise not_ported("the projected (subspace) random effect", 6)
         if staging_cache_dir:
-            raise _not_ported("the staging cache")
+            raise not_ported("the staging cache", 6)
         self.dataset = dataset
         self.re_type = re_type
         self.shard_id = shard_id
@@ -196,7 +192,7 @@ class RandomEffectCoordinate:
         """A model's original-space (E, d) table as a fresh contiguous
         transformed-space copy on the device."""
         if type(model) is not RandomEffectModel:
-            raise _not_ported(f"a {type(model).__name__} warm start")
+            raise not_ported(f"a {type(model).__name__} warm start", 6)
         if tuple(model.means.shape) != (self.num_entities, self.dim):
             raise ValueError(f"warm start is {tuple(model.means.shape)}, "
                              f"the coordinate expects "

@@ -68,6 +68,8 @@ def run(task: TaskType, coordinates: dict[str, object],
     ``validation_fn`` is called after each coordinate update with the
     current GameModel. Each record's ``train_seconds`` ends with the
     device synchronized, so it times the update's work, not its launch.
+    A coordinate that describes its latest solve (``last_solve``, as the
+    sparse fixed effect does) has it recorded under ``"solver"``.
     """
     seq = list(config.update_sequence)
     unknown = [c for c in seq if c not in coordinates]
@@ -115,6 +117,9 @@ def run(task: TaskType, coordinates: dict[str, object],
             elapsed = time.monotonic() - t0
             rec = {"iteration": it, "coordinate": cid,
                    "train_seconds": elapsed}
+            solve = getattr(coord, "last_solve", None)
+            if solve is not None:
+                rec["solver"] = solve
             if validation_fn is not None:
                 rec["validation"] = validation_fn(
                     GameModel(task=task, models=dict(models)))

@@ -22,6 +22,7 @@ import torch
 
 from photon_ml_torch.data.game_data import GameDataset, SparseShard
 from photon_ml_torch.models.coefficients import Coefficients
+from photon_ml_torch.ops.sparse_aggregators import ell_matvec
 from photon_ml_torch.types import TaskType
 
 Tensor = torch.Tensor
@@ -29,13 +30,6 @@ Tensor = torch.Tensor
 
 def _on(x: np.ndarray, like: Tensor) -> Tensor:
     return torch.as_tensor(np.asarray(x), device=like.device)
-
-
-def ell_matvec(indices: Tensor, values: Tensor, means: Tensor) -> Tensor:
-    """(n,) X @ w for ELL rows: padding slots (index == d) read a zero
-    sentinel appended to ``means``."""
-    w_pad = torch.cat([means, means.new_zeros(1)])
-    return torch.sum(values * w_pad[indices.long()], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,9 @@
-"""Optimizers: L-BFGS and OWL-QN over a leading lane axis.
+"""Optimizers: L-BFGS, OWL-QN and TRON over a leading lane axis.
 
 Port of ``photon_ml_tpu/optim/__init__.py``. Reference parity: photon-lib
 ``optimization/`` — ``Optimizer.scala``, ``OptimizerFactory.scala``,
-``LBFGS.scala``, ``OWLQN.scala``. TRON (``TRON.scala``) is not ported
-yet: it comes with slice 3 of the port.
+``LBFGS.scala``, ``OWLQN.scala``, ``TRON.scala``. The reference's
+streamed stochastic solvers (SDCA, SGD) are not optimizer types here.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from photon_ml_torch.optim import lbfgs as _lbfgs
+from photon_ml_torch.optim import tron as _tron
 from photon_ml_torch.optim.common import (Hvp, OptResult, OptimizerConfig,
                                           OptimizerType, ValueAndGrad)
 from photon_ml_torch.optim.regularization import (RegularizationContext,
@@ -25,6 +26,7 @@ Tensor = torch.Tensor
 
 minimize_lbfgs = _lbfgs.minimize
 minimize_owlqn = _lbfgs.minimize_owlqn
+minimize_tron = _tron.minimize
 
 
 def optimize(value_and_grad: ValueAndGrad, w0: Tensor,
@@ -33,10 +35,9 @@ def optimize(value_and_grad: ValueAndGrad, w0: Tensor,
     """Dispatch on OptimizerType (reference: OptimizerFactory.scala).
 
     ``w0`` is (lanes, d). ``value_and_grad`` must already include any L2
-    term (use ``with_l2``); ``l1_weights`` routes to OWL-QN. ``hvp`` is
-    accepted for TRON, which is not ported yet.
+    term (use ``with_l2``); ``l1_weights`` routes to OWL-QN; TRON
+    additionally needs ``hvp``.
     """
-    del hvp  # TRON's input; TRON itself is slice 3
     t = OptimizerType(config.optimizer_type)
     if t == OptimizerType.LBFGS:
         if l1_weights is not None:
@@ -46,14 +47,18 @@ def optimize(value_and_grad: ValueAndGrad, w0: Tensor,
         if l1_weights is None:
             raise ValueError("OWLQN requires l1_weights (else use LBFGS)")
         return minimize_owlqn(value_and_grad, w0, l1_weights, config)
-    raise NotImplementedError(
-        f"{t.value} is not ported yet: TRON comes with slice 3 of the port "
-        "(use LBFGS or OWLQN)")
+    if t == OptimizerType.TRON:
+        if hvp is None:
+            raise ValueError("TRON requires a Hessian-vector product (hvp)")
+        if l1_weights is not None:
+            raise ValueError("TRON does not support L1 (reference parity)")
+        return minimize_tron(value_and_grad, hvp, w0, config)
+    raise ValueError(t)  # pragma: no cover
 
 
 __all__ = [
     "OptResult", "OptimizerConfig", "OptimizerType", "ValueAndGrad", "Hvp",
     "RegularizationContext", "RegularizationType",
-    "minimize_lbfgs", "minimize_owlqn", "optimize",
+    "minimize_lbfgs", "minimize_owlqn", "minimize_tron", "optimize",
     "with_l2", "with_l2_hvp", "l1_weights_vector", "intercept_mask",
 ]

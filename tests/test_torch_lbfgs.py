@@ -157,8 +157,11 @@ def test_optimize_dispatch():
     batch = LabeledBatch(t(X), t(y), t(w), t(o))
     vg = (lambda v: agg.value_and_gradient(losses.LOGISTIC, v, batch))
     w0 = torch.zeros(2, X.shape[-1])
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="requires a Hessian-vector"):
         optimize(vg, w0, OptimizerConfig(optimizer_type=OptimizerType.TRON))
+    with pytest.raises(ValueError, match="does not support L1"):
+        optimize(vg, w0, OptimizerConfig(optimizer_type=OptimizerType.TRON),
+                 hvp=lambda w, v: v, l1_weights=torch.ones(6))
     with pytest.raises(ValueError, match="requires OWLQN"):
         optimize(vg, w0, OptimizerConfig(), l1_weights=torch.ones(6))
     with pytest.raises(ValueError, match="requires l1_weights"):

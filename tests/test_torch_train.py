@@ -374,7 +374,7 @@ def test_unported_options_raise(data, option):
           "ratio": {"features_to_samples_ratio": 0.5},
           "staging_cache": {"staging_cache_dir": "cache"},
           "bf16": {"feature_dtype": "bfloat16"}}.get(option)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 6"):
         if kw is None:
             FixedEffectCoordinate(
                 train, "global", losses.LOGISTIC,
