@@ -59,7 +59,27 @@ code is non-zero:
              bfloat16-rounded row terms; two
              launches must give the same bits. Times kernel, plain version
              and library call at the main shape.
-10. sparse_parity — the same fit at 300,000 rows on the card and on the
+10. stream_train — the row-streamed config-5 fixed effect: the same
+             9,500,000 training rows and 500,000 validation rows, fitted
+             through GameEstimator(streaming=StreamingConfig(...)) in
+             int8 chunks of 262,144 rows with 512 hot columns (37 chunks,
+             the last one padded), 20 L-BFGS iterations. hot_margins,
+             hot_rmatvec and ell_scatter launches are read around the fit
+             alone and must equal the chunks times the passes that run
+             them; two value-and-gradient passes at the final iterate
+             must give the same bits, and one replayed on the CPU over
+             the same staged chunks must agree (value within 1e-5
+             relative, each gradient column within sparse_parity's
+             allowance).
+11. kernels — holds hot_margins and hot_rmatvec against their plain
+             versions on the card at the streamed chunk (int8, and
+             dequantised to float32 and bfloat16), on the padded tail
+             chunk, at a ragged shape and bit for bit on integer inputs:
+             each output within 1e-5 · Σ|terms| of its exact (float64)
+             value, parity_rel within 1e-3, the same bits on two
+             launches. Times kernel, plain version and library call(s)
+             at the streamed chunk.
+12. sparse_parity — the same fit at 300,000 rows on the card and on the
              CPU in one process: every coefficient within 5e-3 after 10
              iterations; every objective evaluation of the card's
              60-iteration fit replayed on the CPU from the same iterate
@@ -68,6 +88,11 @@ code is non-zero:
              terms' own float32 resolution); and the 60-iteration fits'
              validation AUC within 5e-3 (their coefficients are reported,
              beside the CPU's spread over a reversed row order).
+13. stream_parity — those 300,000 rows streamed on the card in 65,536-row
+             chunks, two of them pinned: float32 coefficients within
+             5e-3 of the resident fit's after 10 iterations, every
+             streamed evaluation replayed on the CPU, and int8 storage's
+             validation AUC within 5e-3 of float32's after 20 iterations.
 
 Then it prints the kernel table ({"kernels": [...]}), nvidia-smi's
 "name, power.limit" line, and as its last line
@@ -158,6 +183,19 @@ COLUMN_TOL = 1e-5
 # 6e-4 of r_i. The allowance is eight steps.
 REPLAY_VALUE_RTOL = 1e-5
 REPLAY_ROW_ABS = 2.0 ** -21
+
+# The row-streamed config-5 fixed effect: the reference's StreamingConfig
+# defaults (262,144-row chunks, 512 hot columns, two device buffers) with
+# the flagship's int8 storage, 20 L-BFGS iterations over sparse_train's
+# rows (37 chunks, the last one padded); stream_parity streams
+# sparse_parity's rows in 65,536-row chunks, two of them pinned.
+STREAM_CHUNK_ROWS = 262_144
+STREAM_NUM_HOT = 512
+STREAM_ITERATIONS = 20
+STREAM_PARITY_CHUNK_ROWS = 65_536
+# stream_fused outputs: each within TERM_TOL · Σ|terms| of its exact
+# (float64) value, the serving_score check's form.
+TERM_TOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -887,10 +925,11 @@ def make_sparse_data(np, rows: int):
 
 
 def sparse_estimator(device: str, optimizer: str = "LBFGS",
-                     iterations: int = SPARSE_ITERATIONS):
+                     iterations: int = SPARSE_ITERATIONS, streaming=None):
     """GameEstimator with one ELL sparse fixed effect "ctr", as
     examples/sparse_criteo_style.py builds it (hybrid=False: the layout
-    that reaches the ell_scatter kernel)."""
+    that reaches the ell_scatter kernel); with ``streaming`` (a
+    StreamingConfig) the row-streamed coordinate instead."""
     from photon_ml_torch.api.configs import (CoordinateConfiguration,
                                              FixedEffectDataConfiguration)
     from photon_ml_torch.api.estimator import GameEstimator
@@ -911,7 +950,7 @@ def sparse_estimator(device: str, optimizer: str = "LBFGS",
                 regularization=RegularizationContext(
                     RegularizationType.L2, 1.0)))},
         update_sequence=["ctr"], device=device,
-        validation_evaluators=["AUC"])
+        validation_evaluators=["AUC"], streaming=streaming)
 
 
 def timed_fit(torch, est, train, val, device: str) -> tuple:
@@ -987,7 +1026,7 @@ def phase_sparse_train(np, torch, card: str) -> dict:
          max_memory_allocated=peak,
          tron={**tron, "fit_seconds": tron_s, "launches": tron_launches})
     return {"coord": coord, "model": result.model, "launches": launches,
-            "tron_launches": tron_launches}
+            "tron_launches": tron_launches, "train": train, "val": val}
 
 
 # -- ell_scatter kernels ---------------------------------------------------
@@ -1193,7 +1232,7 @@ def replay_on_cpu(torch, coord, calls) -> dict:
             "gradient_column_ratio": column}
 
 
-def phase_sparse_parity(np, torch, card: str) -> None:
+def phase_sparse_parity(np, torch, card: str) -> dict:
     """The config-5 fit at 300,000 rows on the card and on the CPU.
 
     With L2 every coefficient has one optimum, but 60 L-BFGS iterations
@@ -1262,6 +1301,402 @@ def phase_sparse_parity(np, torch, card: str) -> None:
             f"values {replay['value_rel_gap']} (limit "
             f"{REPLAY_VALUE_RTOL}), worst gradient column at "
             f"{replay['gradient_column_ratio']} of its limit")
+    return {"train": train, "val": val, "early_cuda": early["cuda"][0]}
+
+
+# -- stream_train ----------------------------------------------------------
+
+def stream_config(feature_dtype: str, chunk_rows: int = STREAM_CHUNK_ROWS,
+                  pin_chunks: int = 0):
+    """The reference's StreamingConfig defaults with the flagship's int8
+    storage (dev-scripts/flagship_criteo_stream.py)."""
+    from photon_ml_torch.api.configs import StreamingConfig
+
+    return StreamingConfig(chunk_rows=chunk_rows, num_hot=STREAM_NUM_HOT,
+                           feature_dtype=feature_dtype, prefetch_depth=2,
+                           pin_chunks=pin_chunks)
+
+
+def host_rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def stream_replay(torch, chunked, loss, w, offsets=None) -> tuple:
+    """One value-and-gradient pass over the staged host chunks on the
+    CPU (the port's plain path, chunk by chunk), with each gradient
+    column's allowance: COLUMN_TOL · Σ_i |r_i · x_ic| plus REPLAY_ROW_ABS ·
+    Σ_i w_i · |x_ic| (the sparse_parity allowance; x dequantised)."""
+    import dataclasses
+
+    from photon_ml_torch.ops import streaming_sparse as ss
+
+    w = w.cpu()
+    offsets = None if offsets is None else offsets.cpu()
+    w_pad = ss._padded(w)
+    value = torch.zeros((), dtype=torch.float64)
+    grad = torch.zeros(chunked.dim)
+    allowed = torch.zeros(chunked.dim)
+    for i, ch in enumerate(chunked.chunks):
+        z = ss._chunk_margins_of(ch, w_pad,
+                                 ss._offsets_for(chunked, offsets, i, ch))
+        l, dl = loss.loss_and_dz(z, ch.labels)
+        value += float(torch.sum(ss._masked(ch.weights, l)))
+        r = ss._masked(ch.weights, dl)
+        grad += ss._chunk_rowterm_grad(ch, r)
+        w_pos = torch.where(ch.weights > 0, ch.weights,
+                            torch.zeros_like(r))
+        magnitude = dataclasses.replace(ch, X_hot=ch.X_hot.abs(),
+                                        cold_vals=ch.cold_vals.abs())
+        allowed += ss._chunk_rowterm_grad(
+            magnitude, COLUMN_TOL * r.abs() + REPLAY_ROW_ABS * w_pos)
+    return float(value), grad, allowed
+
+
+def replay_gaps(torch, value, grad, replayed) -> dict:
+    v_cpu, g_cpu, allowed = replayed
+    return {"value_rel_gap": abs(float(value) - v_cpu) / abs(v_cpu),
+            "gradient_column_ratio": column_ratio(torch, grad.cpu(), g_cpu,
+                                                  allowed)}
+
+
+def synced_seconds(torch, fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_stream_train(np, torch, card: str, train, val) -> dict:
+    """Config 5's 9.5M training rows, streamed in int8 through
+    GameEstimator(streaming=...)."""
+    import resource
+
+    from photon_ml_torch.ops import streaming_sparse as ss
+    from photon_ml_torch.ops.kernels import ell_scatter
+    from photon_ml_torch.ops.kernels import stream_fused as sf
+
+    est = sparse_estimator("cuda", iterations=STREAM_ITERATIONS,
+                           streaming=stream_config("int8"))
+    rss0 = host_rss_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    sf.hot_margins.launches = 0  # the streamed path's run starts
+    sf.hot_rmatvec.launches = 0
+    ell_scatter.scatter_rowterm.launches = 0
+    result, fit_s = timed_fit(torch, est, train, val, "cuda")
+    launches = {"hot_margins": sf.hot_margins.launches,  # ... and ends
+                "hot_rmatvec": sf.hot_rmatvec.launches,
+                "ell_scatter": ell_scatter.scatter_rowterm.launches}
+    peak = torch.cuda.max_memory_allocated()
+    fit = check_sparse_fit(torch, result, "stream_train")
+    coord = est.coordinates["ctr"]
+    stream, chunked = coord.stream, coord.chunked
+    chunks = chunked.num_chunks
+    passes = dict(stream.passes)
+    want = {"hot_margins": chunks * sum(passes.values()),
+            "hot_rmatvec": chunks * passes["value_grad"],
+            "ell_scatter": chunks * passes["value_grad"]}
+    if launches != want or passes["value_grad"] != \
+            fit["gradient_evaluations"] or passes["value"] != \
+            fit["value_evaluations"] or passes["margins"] != 2:
+        raise AssertionError(
+            f"stream_train: launches {launches}, expected {want} for "
+            f"{chunks} chunks and passes {passes} (solver: {fit})")
+    pass_bytes = sum(ss._chunk_nbytes(ch) for ch in chunked.chunks)
+    if stream.bytes_moved != pass_bytes * sum(passes.values()):
+        raise AssertionError(f"stream_train: {stream.bytes_moved} bytes "
+                             f"moved for {passes} passes of {pass_bytes}")
+    # At the final iterate: two value-and-gradient passes (same bits),
+    # a value-only pass, and the CPU replay of the first.
+    w = result.model.models["ctr"].coefficients.means
+    (v1, g1), vg_s = synced_seconds(torch, lambda: coord._vg(w))
+    (v2, g2), _ = synced_seconds(torch, lambda: coord._vg(w))
+    _, v_s = synced_seconds(torch, lambda: coord._v(w))
+    if not (torch.equal(v1, v2) and torch.equal(g1, g2)):
+        raise AssertionError("stream_train: two value-and-gradient passes "
+                             "at the same iterate differ")
+    t0 = time.perf_counter()
+    replay = replay_gaps(torch, v1, g1,
+                         stream_replay(torch, chunked, coord.loss, w))
+    replay_s = time.perf_counter() - t0
+    if not (replay["value_rel_gap"] <= REPLAY_VALUE_RTOL
+            and replay["gradient_column_ratio"] <= 1.0):
+        raise AssertionError(f"stream_train: the CPU replay differs: "
+                             f"{replay}")
+    # The copy engine alone: one chunk's payload host→device.
+    host = chunked.chunks[1]
+    dev = {k: torch.empty_like(t, device="cuda")
+           for k, t in host.tensors().items()}
+
+    def copy_chunk():
+        for k, t in host.tensors().items():
+            dev[k].copy_(t, non_blocking=True)
+
+    copy_ms = call_ms(torch, copy_chunk, reps=5, inner=5)
+    cold = dev["cold_cols"]
+    layout_ms = call_ms(torch, lambda: ell_scatter.build_layout(
+        cold, chunked.dim), reps=5, inner=5)
+    del dev, cold
+    record = result.history.records[-1]
+    emit("stream_train", card=card, rows=train.num_rows,
+         val_rows=val.num_rows, dim=chunked.dim, chunks=chunks,
+         chunk_rows=chunked.chunk_rows, num_hot=STREAM_NUM_HOT,
+         feature_dtype="int8",
+         staging_seconds=coord.staging_seconds,
+         pin_seconds=coord.pin_seconds, fit_seconds=fit_s,
+         train_seconds=record["train_seconds"], lbfgs=fit, passes=passes,
+         bytes_per_pass=pass_bytes, bytes_moved=stream.bytes_moved,
+         seconds_per_pass={"value_grad": vg_s, "value": v_s},
+         stream_gb_per_s=pass_bytes / vg_s / 1e9,
+         copy_ms_per_chunk=copy_ms,
+         copy_gb_per_s=ss._chunk_nbytes(host) / copy_ms / 1e6,
+         layout_ms_per_chunk=layout_ms,
+         layout_share_of_value_grad_pass=chunks * layout_ms / 1e3 / vg_s,
+         launches=launches, auc=fit["auc"], replay=replay,
+         replay_seconds=replay_s, max_memory_allocated=peak,
+         host_rss_bytes={"before": rss0, "after": host_rss_bytes(),
+                         "process_peak": resource.getrusage(
+                             resource.RUSAGE_SELF).ru_maxrss * 1024})
+    return {"coord": coord, "w": w, "launches": launches,
+            "passes": passes}
+
+
+# -- stream_fused kernels ---------------------------------------------------
+
+def _exact(torch, X, w, base=None):
+    """float64 value and Σ|terms| of base + X·w (margins) or w·X
+    (rmatvec, ``w`` the row terms, ``base`` None)."""
+    Xd = X.double()
+    if base is None:
+        return w.double() @ Xd, w.double().abs() @ Xd.abs()
+    return Xd @ w.double() + base.double(), \
+        Xd.abs() @ w.double().abs() + base.double().abs()
+
+
+def check_stream_kernel(torch, sf, name, X, vec, base, label: str,
+                        timed: bool, exact: bool = False) -> dict:
+    """One of the two kernels against its plain version at one shape:
+    each output within TERM_TOL · Σ|terms| of its exact (float64) value,
+    parity_rel within PARITY_REL, the same bits on two launches, and bit
+    for bit (kernel, plain, float64) when ``exact``; with ``timed``, the
+    times of kernel, plain version and library call(s) too."""
+    if name == "hot_margins":
+        kernel = (lambda: sf.hot_margins(X, vec, base))
+        plain = (lambda: sf.hot_margins_reference(X, vec, base))
+    else:
+        kernel = (lambda: sf.hot_rmatvec(X, vec))
+        plain = (lambda: sf.hot_rmatvec_reference(X, vec))
+    got, again, want = kernel(), kernel(), plain()
+    true, mag = _exact(torch, X, vec, base if name == "hot_margins"
+                       else None)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    rel = err / max(float(want.abs().max()) if want.numel() else 0.0, 1e-9)
+    ratio = column_ratio(torch, got.double(), true, TERM_TOL * mag)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name} {label}: two launches differ")
+    if exact and not (torch.equal(got, want)
+                      and torch.equal(got.double(), true)):
+        raise AssertionError(f"{name} {label}: not bit-exact on integer "
+                             f"inputs (max |err| {err})")
+    if not (rel <= PARITY_REL and ratio <= 1.0):
+        raise AssertionError(
+            f"{name} {label}: parity_rel {rel} (limit {PARITY_REL}), worst "
+            f"output at {ratio} of {TERM_TOL} · Σ|terms|")
+    n, h = (int(x) for x in X.shape)
+    dtype = str(X.dtype).replace("torch.", "")
+    row = {"kernel": name, "shape": label, "n": n, "H": h, "dtype": dtype,
+           "max_abs_err": err, "parity_rel": rel, "term_ratio": ratio,
+           "bit_exact": err == 0.0}
+    if not timed:
+        return row
+    # Bytes the function must move: X once, the (n,) and (H,) vectors
+    # once, the output once; 2·n·H float32 operations.
+    vectors = (h + 2 * n) if name == "hot_margins" else (n + h)
+    nbytes = n * h * X.element_size() + vectors * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 2 * n * h / PEAK_F32_FLOP_PER_S * 1e3
+    if name == "hot_margins":
+        library = (lambda: torch.addmv(base, X.float(), vec))
+    else:
+        library = (lambda: torch.mv(X.float().t(), vec))
+    row.update({
+        "ms": device_ms(torch, kernel),
+        "call_ms": call_ms(torch, kernel),
+        "plain_ms": device_ms(torch, plain, reps=11, inner=20),
+        "library_ms": device_ms(torch, library, reps=11, inner=20),
+        "library_call": (("torch.addmv" if name == "hot_margins" else
+                          "torch.mv on X.t()") if dtype == "float32" else
+                         ("two calls: Tensor.float(), then " +
+                          ("torch.addmv" if name == "hot_margins" else
+                           "torch.mv on X.t()"))),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes})
+    return row
+
+
+def phase_stream_kernels(np, torch, trained: dict) -> list[dict]:
+    """hot_margins and hot_rmatvec at the streamed chunk (the fit's own
+    int8 chunk, and that chunk dequantised to float32 and bfloat16), on
+    the padded tail chunk, at a ragged shape and on integer inputs."""
+    from photon_ml_torch.ops import streaming_sparse as ss
+    from photon_ml_torch.ops.kernels import stream_fused as sf
+
+    coord = trained["coord"]
+    w_pad = ss._padded(trained["w"])
+
+    def inputs(ch):
+        """The chunk on the card with the fit's own kernel inputs: the
+        scale-folded w_hot, the base (cold tier + zero offsets) and the
+        row terms at the final iterate."""
+        ch = ss._place(ch, torch.device("cuda"))
+        w_hot = torch.index_select(w_pad, 0, ch.hot_cols) * ch.hot_scale
+        w_cold = w_pad * ch.cold_scale
+        k = ch.cold_cols.shape[1]
+        base = ch.offsets + (torch.index_select(
+            w_cold, 0, ch.cold_cols.reshape(-1)).reshape(-1, k)
+            * ch.cold_vals.float()).sum(dim=1)
+        z = sf.hot_margins_reference(ch.X_hot, w_hot, base)
+        _, dl = coord.loss.loss_and_dz(z, ch.labels)
+        return ch, w_hot, base, ss._masked(ch.weights, dl)
+
+    rows = []
+    main, w_hot, base, r = inputs(coord.chunked.chunks[0])
+    # The same chunk dequantised: float32 values with unscaled weights.
+    X32 = main.X_hot.float() * main.hot_scale
+    w32 = torch.index_select(w_pad, 0, main.hot_cols)
+    for X, w in ((main.X_hot, w_hot), (X32, w32), (X32.bfloat16(), w32)):
+        for name, vec in (("hot_margins", w), ("hot_rmatvec", r)):
+            rows.append(check_stream_kernel(torch, sf, name, X, vec, base,
+                                            "main", True))
+    del main, X32
+    tail, w_hot, base, r = inputs(coord.chunked.chunks[-1])
+    rows += [check_stream_kernel(torch, sf, name, tail.X_hot, vec, base,
+                                 "tail chunk", False)
+             for name, vec in (("hot_margins", w_hot), ("hot_rmatvec", r))]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for n, h, integer in ((1000, 37, False), (STREAM_CHUNK_ROWS // 4,
+                                                STREAM_NUM_HOT, True)):
+        lo, hi = (-8, 9) if integer else (-127, 128)
+        codes = torch.randint(lo, hi, (n, h), generator=gen, device="cuda")
+        codes[torch.rand((n, h), generator=gen, device="cuda") < 0.6] = 0
+        if integer:
+            vecs = [torch.randint(-4, 5, (s,), generator=gen,
+                                  device="cuda").float() for s in (h, n, n)]
+        else:
+            vecs = [torch.randn(s, generator=gen, device="cuda")
+                    for s in (h, n, n)]
+        w, b, rr = vecs
+        label = "integer" if integer else "ragged"
+        for X in (codes.to(torch.int8), codes.float() * (1.0 if integer
+                                                         else 0.01),
+                  (codes.float() * (1.0 if integer else 0.01)).bfloat16()):
+            rows.append(check_stream_kernel(torch, sf, "hot_margins", X, w,
+                                            b, label, False, integer))
+            rows.append(check_stream_kernel(torch, sf, "hot_rmatvec", X, rr,
+                                            None, label, False, integer))
+    emit("kernels", kernel="stream_fused", checks=len(rows), shapes=rows)
+    return rows
+
+
+# -- stream_parity ---------------------------------------------------------
+
+class StreamEvaluationLog:
+    """Records every streamed value-and-gradient pass while it is open:
+    the coordinate builds its pass with
+    ``ops.streaming_sparse.make_value_and_gradient``, and each (iterate,
+    offsets, value, gradient) is kept on the host."""
+
+    def __init__(self, ss):
+        self.ss = ss
+        self.inner = ss.make_value_and_gradient
+        self.calls = []
+
+    def __enter__(self):
+        def make(*args, **kwargs):
+            vg = self.inner(*args, **kwargs)
+
+            def recorded(w, offsets=None):
+                value, grad = vg(w, offsets)
+                self.calls.append((w.cpu(), None if offsets is None
+                                   else offsets.cpu(), value.cpu(),
+                                   grad.cpu()))
+                return value, grad
+
+            return recorded
+
+        self.ss.make_value_and_gradient = make
+        return self
+
+    def __exit__(self, *exc):
+        self.ss.make_value_and_gradient = self.inner
+
+
+def phase_stream_parity(np, torch, card: str, parity: dict) -> None:
+    """sparse_parity's 300,000 rows streamed on the card, in chunks of
+    STREAM_PARITY_CHUNK_ROWS with two pinned: against the resident fit
+    after PARITY_EARLY_ITERATIONS iterations (every coefficient within
+    PARITY_TOL), every streamed evaluation replayed on the CPU, and int8
+    storage's validation AUC against float32's."""
+    from photon_ml_torch.ops import streaming_sparse as ss
+
+    train, val = parity["train"], parity["val"]
+
+    def fit(dtype, iterations, log=None):
+        est = sparse_estimator("cuda", iterations=iterations,
+                               streaming=stream_config(
+                                   dtype, STREAM_PARITY_CHUNK_ROWS, 2))
+        if log is None:
+            result, seconds = timed_fit(torch, est, train, val, "cuda")
+        else:
+            with log:
+                result, seconds = timed_fit(torch, est, train, val, "cuda")
+        return (result.model.models["ctr"].coefficients.means.cpu(),
+                result.evaluation.metrics["AUC"],
+                result.history.records[-1]["solver"], seconds,
+                est.coordinates["ctr"])
+
+    log = StreamEvaluationLog(ss)
+    early = fit("float32", PARITY_EARLY_ITERATIONS, log)
+    coord = early[4]
+    replays = [replay_gaps(torch, value, grad, stream_replay(
+        torch, coord.chunked, coord.loss, w, offsets))
+        for w, offsets, value, grad in log.calls]
+    full = {dtype: fit(dtype, STREAM_ITERATIONS)
+            for dtype in ("float32", "int8")}
+    early_diff = float((early[0] - parity["early_cuda"]).abs().max())
+    auc_diff = abs(full["int8"][1] - full["float32"][1])
+    replay = {"evaluations": len(replays),
+              "value_rel_gap": max(r["value_rel_gap"] for r in replays),
+              "gradient_column_ratio": max(r["gradient_column_ratio"]
+                                           for r in replays)}
+    emit("stream_parity", card=card, rows=train.num_rows,
+         chunks=coord.chunked.num_chunks,
+         chunk_rows=STREAM_PARITY_CHUNK_ROWS, pinned_chunks=2,
+         early_iterations=PARITY_EARLY_ITERATIONS,
+         early_coefficient_max_diff_vs_resident=early_diff,
+         replay=replay, auc={k: v[1] for k, v in full.items()},
+         int8_auc_diff=auc_diff,
+         solver={"early float32": early[2],
+                 **{k: v[2] for k, v in full.items()}},
+         fit_seconds={"early float32": early[3],
+                      **{k: v[3] for k, v in full.items()}},
+         tolerance=PARITY_TOL)
+    if replay["evaluations"] != early[2]["gradient_evaluations"]:
+        raise AssertionError(
+            f"stream_parity: recorded {replay['evaluations']} streamed "
+            f"evaluations, the solver reports "
+            f"{early[2]['gradient_evaluations']}")
+    if not (early_diff <= PARITY_TOL and auc_diff <= PARITY_TOL
+            and replay["value_rel_gap"] <= REPLAY_VALUE_RTOL
+            and replay["gradient_column_ratio"] <= 1.0):
+        raise AssertionError(
+            f"stream_parity: coefficients after {PARITY_EARLY_ITERATIONS} "
+            f"iterations {early_diff} from the resident fit and int8 AUC "
+            f"{auc_diff} from float32 (limit {PARITY_TOL}); replay "
+            f"{replay}")
 
 
 def main() -> int:
@@ -1305,9 +1740,17 @@ def main() -> int:
     ell_checks = phase_ell_scatter(np, torch, sparse_trained)
     sparse_launches = {"lbfgs": sparse_trained["launches"],
                        "tron": sparse_trained["tron_launches"]}
+    train5, val5 = sparse_trained["train"], sparse_trained["val"]
     del sparse_trained
     torch.cuda.empty_cache()
-    phase_sparse_parity(np, torch, card)
+    stream_trained = phase_stream_train(np, torch, card, train5, val5)
+    del train5, val5
+    stream_checks = phase_stream_kernels(np, torch, stream_trained)
+    stream_launches = stream_trained["launches"]
+    del stream_trained
+    torch.cuda.empty_cache()
+    parity = phase_sparse_parity(np, torch, card)
+    phase_stream_parity(np, torch, card, parity)
 
     main_shape = next(c for c in checks if c["n"] == 64
                       and c["cache"] == "float32")
@@ -1354,6 +1797,7 @@ def main() -> int:
         "replaces": "photon_ml_tpu/ops/kernels/ell_scatter.py:68",
         "launches": sparse_launches["lbfgs"],
         "tron_launches": sparse_launches["tron"],
+        "stream_launches": stream_launches["ell_scatter"],
         "max_abs_err": max(c["max_abs_err"] for c in ell_checks),
         "parity_rel": max(c["parity_rel"] for c in ell_checks),
         "column_ratio": max(c["column_ratio"] for c in ell_checks),
@@ -1365,14 +1809,35 @@ def main() -> int:
         "shape": (f"n={main_ell['n']} k={main_ell['k']} "
                   f"dim={main_ell['dim']} (sparse_train gradient)"),
         "checks": len(ell_checks)})
+    # The stream_fused rows report the fit's own int8 chunk; the float32
+    # and bfloat16 timings of the same chunk ride beside them.
+    for name, line in (("hot_margins", 61), ("hot_rmatvec", 112)):
+        mine = [c for c in stream_checks if c["kernel"] == name]
+        main8 = next(c for c in mine if c["shape"] == "main"
+                     and c["dtype"] == "int8")
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "photon_ml_torch/csrc/stream_fused.cu",
+            "replaces": f"photon_ml_tpu/ops/kernels/stream_fused.py:{line}",
+            "launches": stream_launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "parity_rel": max(c["parity_rel"] for c in mine),
+            "term_ratio": max(c["term_ratio"] for c in mine),
+            "ms": main8["ms"], "plain_ms": main8["plain_ms"],
+            "bound_ms": main8["bound_ms"], "bound_by": main8["bound_by"],
+            "library_ms": main8["library_ms"],
+            "library_call": main8["library_call"],
+            "call_ms": main8["call_ms"],
+            "shape": (f"n={main8['n']} H={main8['H']} int8 (stream_train "
+                      f"chunk)"),
+            "by_dtype": {c["dtype"]: {k: c[k] for k in (
+                "ms", "call_ms", "plain_ms", "library_ms", "library_call",
+                "bound_ms")} for c in mine if c["shape"] == "main"},
+            "checks": len(mine)})
     # The TPU kernels the port has not reached yet (ROADMAP.md §B).
     to_port = [
-        {"replaces": "photon_ml_tpu/ops/kernels/stream_fused.py:61",
-         "name": "hot_margins_pallas", "slice": 5},
-        {"replaces": "photon_ml_tpu/ops/kernels/stream_fused.py:112",
-         "name": "hot_rmatvec_pallas", "slice": 5},
         {"replaces": "dev-scripts/exp_cold_gather.py:58",
-         "name": "fused_cold_grad", "slice": 7}]
+         "name": "fused_cold_grad", "slice": 4}]
     print(json.dumps({"kernels": table, "to_port": to_port}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

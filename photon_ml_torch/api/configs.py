@@ -7,8 +7,9 @@ the unprojected random effect. Reference parity: photon-api
 ``data/RandomEffectDataConfiguration.scala`` and the per-coordinate
 optimization bundles of ``optimization/game/*Configuration.scala``.
 
-The factored random-effect configuration is here so that the estimator
-can name the slice that ports it; the streaming, staging, ingest and
+``StreamingConfig`` routes sparse fixed effects onto the row-streamed
+path. The factored random-effect configuration is here so that the
+estimator can name the slice that ports it; the staging, ingest and
 sweep configurations and the CLI mini-DSL parsers come with the slices
 that port their paths.
 """
@@ -26,7 +27,65 @@ __all__ = [
     "FactoredRandomEffectDataConfiguration",
     "FixedEffectDataConfiguration",
     "RandomEffectDataConfiguration",
+    "StreamingConfig",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingConfig:
+    """Row-streamed fixed-effect fit configuration (reference:
+    ``photon_ml_tpu/api/configs.StreamingConfig``).
+
+    Passed to ``GameEstimator(streaming=...)``, it routes sparse
+    fixed-effect coordinates onto the streamed path: the SparseShard
+    stages into host-resident hot-dense/cold-ELL chunks, and every L-BFGS
+    value/gradient streams them through the device, so the row count is
+    bounded by host memory, not device memory.
+
+    ``chunk_rows``: rows per chunk, the streamed transfer unit.
+    ``num_hot``: hot-dense columns per chunk (the Zipf head).
+    ``feature_dtype``: chunk storage dtype; None inherits the
+    coordinate's ``FixedEffectDataConfiguration.feature_dtype``. "int8"
+    (symmetric per-column codes, float32 accumulation) quarters the
+    host→device stream; "bfloat16" is not ported yet (slice 6).
+    ``prefetch_depth``: device buffers of the stream (copies in flight
+    beside the compute). ``pin_chunks``: leading chunks kept on the
+    device. ``workers``: staging threads (None = host cores).
+    ``solver``: "lbfgs"; "sdca" and "sgd" (the stochastic solvers) are
+    not ported yet (slice 7).
+    """
+
+    chunk_rows: int = 262144
+    num_hot: int = 512
+    feature_dtype: Optional[str] = None
+    prefetch_depth: int = 2
+    pin_chunks: int = 0
+    workers: Optional[int] = None
+    solver: str = "lbfgs"
+
+    def __post_init__(self):
+        if self.chunk_rows < 1:
+            raise ValueError(
+                f"chunk_rows must be >= 1, got {self.chunk_rows}")
+        if self.num_hot < 1:
+            raise ValueError(f"num_hot must be >= 1, got {self.num_hot}")
+        if self.feature_dtype not in (None, "float32", "bfloat16",
+                                      "int8"):
+            raise ValueError(
+                f"unsupported feature_dtype {self.feature_dtype!r}; "
+                "expected float32, bfloat16, or int8")
+        if self.prefetch_depth < 1:
+            raise ValueError(
+                f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
+        if self.pin_chunks < 0:
+            raise ValueError(
+                f"pin_chunks must be >= 0, got {self.pin_chunks}")
+        if self.workers is not None and self.workers < 1:
+            raise ValueError(f"workers must be >= 1, got {self.workers}")
+        if self.solver not in ("lbfgs", "sdca", "sgd"):
+            raise ValueError(
+                f"unsupported streaming solver {self.solver!r}; "
+                "expected lbfgs, sdca, or sgd")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,12 +10,13 @@ Seq[(GameModel, EvaluationResults, config)]``).
 
 It builds dense and sparse (ELL) fixed-effect coordinates and unprojected
 random-effect coordinates on ``device`` (``cuda`` unless the caller
-passes ``"cpu"``), where the reference takes a mesh. Not ported yet, each
-raising and naming the slice that ports it: streamed fixed effects
-(slice 5), checkpoints, span traces, the run ledger, convergence
-watchdogs and the projected staging pipeline (slice 6), factored random
-effects, ``projector=RANDOM`` and gated sweeps (slice 8), and Avro
-ingestion (slice 9).
+passes ``"cpu"``), where the reference takes a mesh; with
+``streaming=StreamingConfig(...)`` a sparse fixed effect becomes a
+row-streamed coordinate. Not ported yet, each raising and naming the
+slice that ports it: checkpoints, span traces, the run ledger,
+convergence watchdogs and the projected staging pipeline (slice 6),
+factored random effects, ``projector=RANDOM`` and gated sweeps (slice 8),
+and Avro ingestion (slice 9).
 """
 
 from __future__ import annotations
@@ -39,9 +40,9 @@ from photon_ml_torch.data.game_data import GameDataset, SparseShard
 from photon_ml_torch.device import DeviceLike, resolve_device
 from photon_ml_torch.evaluation import evaluators as ev
 from photon_ml_torch.game import descent
-from photon_ml_torch.game.coordinates import (FixedEffectCoordinate,
-                                              RandomEffectCoordinate,
-                                              SparseFixedEffectCoordinate)
+from photon_ml_torch.game.coordinates import (
+    FixedEffectCoordinate, RandomEffectCoordinate, SparseFixedEffectCoordinate,
+    StreamingSparseFixedEffectCoordinate)
 from photon_ml_torch.game.models import GameModel
 from photon_ml_torch.normalization import NormalizationContext
 from photon_ml_torch.ops import losses as losses_mod
@@ -132,7 +133,6 @@ class GameEstimator:
         watchdog=None,
     ):
         for value, what, slice_no in (
-                (streaming, "streaming (the row-streamed fixed effect)", 5),
                 (staging, "staging (the projected staging pipeline)", 6),
                 (staging_cache_dir, "staging_cache_dir (the staging cache)",
                  6),
@@ -150,6 +150,9 @@ class GameEstimator:
         self.descent_iterations = descent_iterations
         self.validation_evaluators = validation_evaluators or []
         self.normalization = normalization or {}
+        # A StreamingConfig routes sparse fixed-effect coordinates onto
+        # the row-streamed path.
+        self.streaming = streaming
         self.compute_variances_at_end = compute_variances_at_end
         self.loss = losses_mod.loss_for_task(self.task)
         # (cache key, coords) of the last fit: repeated fits on the SAME
@@ -173,6 +176,7 @@ class GameEstimator:
         opt_configs: dict[str, GLMOptimizationConfiguration],
     ) -> dict[str, object]:
         coords: dict[str, object] = {}
+        streamed: list[str] = []
         for cid, cc in self.coordinate_configs.items():
             opt = opt_configs[cid]
             data = cc.data
@@ -183,6 +187,21 @@ class GameEstimator:
                         raise ValueError(
                             f"normalization is not supported on sparse "
                             f"shard {data.feature_shard_id!r}")
+                    if self.streaming is not None:
+                        if data.feature_sharded:
+                            raise ValueError(
+                                f"coordinate {cid!r}: streaming and "
+                                f"feature_sharded are mutually exclusive "
+                                f"— the streamed path shards ROWS, not "
+                                f"features")
+                        coords[cid] = \
+                            StreamingSparseFixedEffectCoordinate.stage(
+                                dataset, data.feature_shard_id, self.loss,
+                                opt, None, self.streaming,
+                                default_dtype=data.feature_dtype,
+                                device=self.device)
+                        streamed.append(cid)
+                        continue
                     coords[cid] = SparseFixedEffectCoordinate(
                         dataset, data.feature_shard_id, self.loss, opt,
                         feature_sharded=data.feature_sharded,
@@ -218,6 +237,13 @@ class GameEstimator:
             else:
                 raise TypeError(f"unknown coordinate data configuration "
                                 f"{type(data).__name__}")
+        if self.streaming is not None and not streamed:
+            # A streaming config that routes nothing would be a silent
+            # no-op.
+            raise ValueError(
+                "streaming=... was set but no coordinate routed onto the "
+                "streamed path: it applies to FIXED-effect coordinates "
+                "over SPARSE shards")
         return coords
 
     # -- evaluation --------------------------------------------------------

@@ -3,7 +3,8 @@
 Port of ``photon_ml_tpu/game/coordinates/``. Reference parity: photon-api
 ``algorithm/Coordinate.scala``, ``FixedEffectCoordinate.scala`` (one GLM
 fit over the whole dataset, over a dense or an ELL sparse shard) and
-``RandomEffectCoordinate.scala`` (per-entity local GLM fits).
+``RandomEffectCoordinate.scala`` (per-entity local GLM fits), and the
+row-streamed sparse fixed effect.
 
 Residency: each coordinate stages its data on its device once, in
 ``__init__``; per coordinate-descent step the only new inputs are the
@@ -18,6 +19,9 @@ from photon_ml_torch.game.coordinates.random_effect import \
     RandomEffectCoordinate
 from photon_ml_torch.game.coordinates.sparse_fixed import \
     SparseFixedEffectCoordinate
+from photon_ml_torch.game.coordinates.streaming_fixed import \
+    StreamingSparseFixedEffectCoordinate
 
 __all__ = ["FixedEffectCoordinate", "RandomEffectCoordinate",
-           "SparseFixedEffectCoordinate"]
+           "SparseFixedEffectCoordinate",
+           "StreamingSparseFixedEffectCoordinate"]

@@ -2,8 +2,10 @@
 
 Port of ``photon_ml_tpu/optim/__init__.py``. Reference parity: photon-lib
 ``optimization/`` — ``Optimizer.scala``, ``OptimizerFactory.scala``,
-``LBFGS.scala``, ``OWLQN.scala``, ``TRON.scala``. The reference's
-streamed stochastic solvers (SDCA, SGD) are not optimizer types here.
+``LBFGS.scala``, ``OWLQN.scala``, ``TRON.scala``. ``minimize_streaming``
+is the host-driven L-BFGS/OWL-QN of row-streamed objectives. The
+reference's streamed stochastic solvers (SDCA, SGD) are not optimizer
+types here.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from photon_ml_torch.optim import lbfgs as _lbfgs
 from photon_ml_torch.optim import tron as _tron
 from photon_ml_torch.optim.common import (Hvp, OptResult, OptimizerConfig,
                                           OptimizerType, ValueAndGrad)
+from photon_ml_torch.optim.streaming import minimize_streaming
 from photon_ml_torch.optim.regularization import (RegularizationContext,
                                                   RegularizationType,
                                                   intercept_mask,
@@ -59,6 +62,7 @@ def optimize(value_and_grad: ValueAndGrad, w0: Tensor,
 __all__ = [
     "OptResult", "OptimizerConfig", "OptimizerType", "ValueAndGrad", "Hvp",
     "RegularizationContext", "RegularizationType",
-    "minimize_lbfgs", "minimize_owlqn", "minimize_tron", "optimize",
+    "minimize_lbfgs", "minimize_owlqn", "minimize_streaming",
+    "minimize_tron", "optimize",
     "with_l2", "with_l2_hvp", "l1_weights_vector", "intercept_mask",
 ]

@@ -34,25 +34,11 @@ from photon_ml_torch.game.models import (FixedEffectModel, GameModel,
                                          RandomEffectModel,
                                          SubspaceRandomEffectModel,
                                          dense_rows_from_subspace)
+# The int8 cache quantises on the host with the streamed chunks' helper,
+# so its codes equal the reference's byte for byte.
+from photon_ml_torch.ops.streaming_sparse import quantize_rows_int8
 
 logger = logging.getLogger("photon_ml_torch.serving")
-
-INT8_QMAX = 127
-
-
-def quantize_rows_int8(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Symmetric per-ROW int8 quantisation: q = round(x / s) with
-    s = max|row| / 127; all-zero rows keep scale 0 and code 0. The port's
-    copy of ``photon_ml_tpu.ops.streaming_sparse.quantize_rows_int8``,
-    run on the host so its codes equal the reference's byte for byte."""
-    x = np.asarray(x, np.float32)
-    scale = np.abs(x).max(axis=-1) / INT8_QMAX if x.size else \
-        np.zeros(x.shape[:-1], np.float32)
-    scale = np.asarray(scale, np.float32)
-    denom = np.where(scale > 0.0, scale, 1.0)
-    q = np.clip(np.rint(x / denom[..., None]), -INT8_QMAX,
-                INT8_QMAX).astype(np.int8)
-    return q, scale
 
 
 def _next_pow2(n: int) -> int:

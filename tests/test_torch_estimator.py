@@ -20,7 +20,8 @@ import pytest
 
 from photon_ml_torch.api.configs import (
     CoordinateConfiguration, FactoredRandomEffectDataConfiguration,
-    FixedEffectDataConfiguration, RandomEffectDataConfiguration)
+    FixedEffectDataConfiguration, RandomEffectDataConfiguration,
+    StreamingConfig)
 from photon_ml_torch.api.estimator import GameEstimator
 from photon_ml_torch.data import sparse, synthetic
 from photon_ml_torch.data.game_data import from_sparse_batch, from_synthetic
@@ -186,7 +187,8 @@ def test_dense_game_fit_matches_reference():
 
 
 @pytest.mark.parametrize("option,slice_no", [
-    ({"streaming": object()}, 5), ({"staging": object()}, 6),
+    ({"streaming": StreamingConfig(solver="sdca")}, 7),
+    ({"staging": object()}, 6),
     ({"staging_cache_dir": "cache"}, 6), ({"trace": object()}, 6),
     ({"ledger_dir": "ledger"}, 6), ({"watchdog": object()}, 6),
     ({"sweep": object()}, 8), ({"ingest": object()}, 9),
