@@ -45,7 +45,8 @@ code is non-zero:
 8. sparse_train — the config-5 path: Criteo-shaped sparse data from a
              seed (10,000,000 rows, d = 1,000,000, 32 slots, Zipf(1.3)
              columns; 5% held out), fitted through GameEstimator.fit with
-             one ELL sparse fixed effect (L-BFGS, 60 iterations, L2 1.0)
+             one ELL sparse fixed effect (hybrid=False, so ell_scatter
+             gets all 9.5M training rows; L-BFGS, 60 iterations, L2 1.0)
              and validation AUC; then a TRON fit of the same coordinate.
              ell_scatter's launch count is read around each fit alone and
              must equal the solver's objective evaluations.
@@ -79,7 +80,32 @@ code is non-zero:
              value, parity_rel within 1e-3, the same bits on two
              launches. Times kernel, plain version and library call(s)
              at the streamed chunk.
-12. sparse_parity — the same fit at 300,000 rows on the card and on the
+12. hybrid_train — config 5's one-device default, the hybrid hot/cold
+             layout: the first 4,750,000 of those training rows (2,000,000
+             where the host or the card cannot hold what staging needs;
+             the reckoning is printed first) and the same validation rows,
+             through GameEstimator.fit with a default
+             FixedEffectDataConfiguration (L-BFGS, 60 iterations, L2 1.0).
+             Staging is split into host layout, device fill and the cold
+             scatter's layout. hot_margins, hot_rmatvec, cold_grad and
+             ell_scatter launches are read around the fit alone and must
+             equal the evaluations (margins and scatter: plus the
+             descent's two scoring passes; cold_grad: times the classes).
+             Then the same rows on the ELL layout in the same process:
+             milliseconds per evaluation of each layout and both AUCs. At
+             the hybrid fit's final iterate the two objectives must agree
+             (value within 1e-5 relative, each gradient column within
+             sparse_parity's allowance), and two hybrid value-and-gradient
+             passes must give the same bits.
+13. kernels — holds cold_grad against its plain version on the card on
+             every class of the main shape with the fit's own residual,
+             with squared values, on an all-padding class, on an L = 1
+             class and bit for bit on integer inputs: each column within
+             1e-5 · Σ|terms| of its exact (float64) sum, the check shown
+             to reject bfloat16-rounded inputs, the same bits on two
+             launches. Times kernel, plain version and a CSR torch.mv over
+             all classes of a gradient pass.
+14. sparse_parity — the same fit at 300,000 rows on the card and on the
              CPU in one process: every coefficient within 5e-3 after 10
              iterations; every objective evaluation of the card's
              60-iteration fit replayed on the CPU from the same iterate
@@ -88,11 +114,18 @@ code is non-zero:
              terms' own float32 resolution); and the 60-iteration fits'
              validation AUC within 5e-3 (their coefficients are reported,
              beside the CPU's spread over a reversed row order).
-13. stream_parity — those 300,000 rows streamed on the card in 65,536-row
+15. stream_parity — those 300,000 rows streamed on the card in 65,536-row
              chunks, two of them pinned: float32 coefficients within
              5e-3 of the resident fit's after 10 iterations, every
              streamed evaluation replayed on the CPU, and int8 storage's
              validation AUC within 5e-3 of float32's after 20 iterations.
+16. hybrid_parity — those 300,000 rows in the hybrid layout on the card
+             and on the CPU: every coefficient within 5e-3 after 10
+             iterations, every card evaluation of that fit replayed on the
+             CPU (sparse_parity's limits), and 5 TRON iterations on the
+             card with cold_grad and hot_rmatvec launches equal to its
+             gradient evaluations and H·v products (cold_grad times the
+             classes).
 
 Then it prints the kernel table ({"kernels": [...]}), nvidia-smi's
 "name, power.limit" line, and as its last line
@@ -196,6 +229,17 @@ STREAM_PARITY_CHUNK_ROWS = 65_536
 # stream_fused outputs: each within TERM_TOL · Σ|terms| of its exact
 # (float64) value, the serving_score check's form.
 TERM_TOL = 1e-5
+
+# The hybrid hot/cold layout, config 5's one-device default: the first
+# HYBRID_ROWS of sparse_train's training rows. Its float32 hot block grows
+# with the rows at ~1,800 columns (the default threshold is rows/2048):
+# 68 GB at all 9.5M rows, which the 80 GB card cannot hold beside the rest,
+# 34 GB at 4.75M. Where the host or the card cannot hold what staging
+# needs, HYBRID_ROWS_CUT (a 14 GB block). Width, slots and skew are not cut.
+HYBRID_ROWS = 4_750_000
+HYBRID_ROWS_CUT = 2_000_000
+# hybrid_parity's TRON run on the card.
+TRON_PARITY_ITERATIONS = 5
 
 
 def emit(phase: str, **fields) -> None:
@@ -925,11 +969,15 @@ def make_sparse_data(np, rows: int):
 
 
 def sparse_estimator(device: str, optimizer: str = "LBFGS",
-                     iterations: int = SPARSE_ITERATIONS, streaming=None):
-    """GameEstimator with one ELL sparse fixed effect "ctr", as
-    examples/sparse_criteo_style.py builds it (hybrid=False: the layout
-    that reaches the ell_scatter kernel); with ``streaming`` (a
-    StreamingConfig) the row-streamed coordinate instead."""
+                     iterations: int = SPARSE_ITERATIONS, streaming=None,
+                     hybrid=False):
+    """GameEstimator with one sparse fixed effect "ctr", as
+    examples/sparse_criteo_style.py builds it, on the ELL layout
+    (hybrid=False, the sparse and streamed cells: ell_scatter then gets
+    config 5's full 9.5M rows) or, with ``hybrid=None``, the default
+    layout, which on one device is the hybrid hot/cold one (the hybrid
+    cells); with ``streaming`` (a StreamingConfig) the row-streamed
+    coordinate instead."""
     from photon_ml_torch.api.configs import (CoordinateConfiguration,
                                              FixedEffectDataConfiguration)
     from photon_ml_torch.api.estimator import GameEstimator
@@ -942,7 +990,7 @@ def sparse_estimator(device: str, optimizer: str = "LBFGS",
     return GameEstimator(
         task=TaskType.LOGISTIC_REGRESSION,
         coordinates={"ctr": CoordinateConfiguration(
-            data=FixedEffectDataConfiguration("global", hybrid=False),
+            data=FixedEffectDataConfiguration("global", hybrid=hybrid),
             optimization=GLMOptimizationConfiguration(
                 optimizer=OptimizerConfig(
                     optimizer_type=OptimizerType(optimizer),
@@ -1699,6 +1747,481 @@ def phase_stream_parity(np, torch, card: str, parity: dict) -> None:
             f"{replay}")
 
 
+# -- hybrid_train ----------------------------------------------------------
+
+def host_available_bytes() -> int:
+    """MemAvailable from /proc/meminfo."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable line")
+
+
+def hybrid_reckoning(np, torch, train, rows: int) -> dict:
+    """What staging the first ``rows`` rows in the hybrid layout needs,
+    from the column counts (the layout's own rule: hot at max(8,
+    rows/2048) entries, at most 4,096 columns; cold columns in
+    power-of-two classes), beside the card's and the host's memory."""
+    from photon_ml_torch.ops import hybrid_sparse as hs
+
+    shard = train.feature_shards["global"]
+    idx, val = shard.indices[:rows], shard.values[:rows]
+    d = shard.num_features
+    counts = np.bincount(idx[(idx < d) & (val != 0.0)], minlength=d)
+    desc = np.sort(counts)[::-1]
+    k = int(min(4096, (counts >= hs._default_hot_threshold(rows)).sum()))
+    cold = desc[k:][desc[k:] > 0]
+    cls = np.ceil(np.log2(np.maximum(cold, 1))).astype(np.int64)
+    kinds, per = np.unique(cls, return_counts=True)
+    k_pad = -(-k // hs.HOT_ALIGN) * hs.HOT_ALIGN
+    free, total = torch.cuda.mem_get_info()
+    return {
+        "rows": rows, "num_hot": k, "hot_block_bytes": rows * k_pad * 4,
+        "cold_classes": int(kinds.size),
+        "cold_slots": int((per * (1 << kinds)).sum()),
+        "cold_entries": int(cold.sum()), "live_entries": int(counts.sum()),
+        # Host staging holds a few flat (rows·slots,) arrays at once (row
+        # ids, permuted columns, masks), about 16 bytes a slot; the card
+        # holds the hot block beside the ELL fit's batch and layout.
+        "host_staging_bytes": rows * SPARSE_NNZ * 16,
+        "device_bytes": rows * k_pad * 4 + rows * SPARSE_NNZ * 16,
+        "card_free_bytes": free, "card_total_bytes": total,
+        "host_available_bytes": host_available_bytes()}
+
+
+class StagingClock:
+    """While open, times build_hybrid's device fill of the hot block and
+    its scatter layout of the cold row ids (each ended by a device
+    synchronize); the rest of staging is the host layout."""
+
+    def __init__(self, torch, hs):
+        self.torch, self.hs = torch, hs
+        self.inner = (hs._fill_hot, hs._cold_layout)
+        self.seconds = {"device_fill": 0.0, "cold_layout": 0.0}
+
+    def _timed(self, key, fn):
+        def timed(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds[key] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def __enter__(self):
+        self.hs._fill_hot = self._timed("device_fill", self.inner[0])
+        self.hs._cold_layout = self._timed("cold_layout", self.inner[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.hs._fill_hot, self.hs._cold_layout = self.inner
+
+
+def residual(torch, loss, z, batch):
+    """The row terms w·dl of a gradient at margins ``z`` (zero weight →
+    zero)."""
+    _, dl = loss.loss_and_dz(z, batch.labels)
+    return torch.where(batch.weights > 0, batch.weights * dl,
+                       torch.zeros_like(dl))
+
+
+def objective_gap(torch, hs, sagg, es, loss, hb, batch, w) -> dict:
+    """The hybrid and ELL objectives at one original-space iterate ``w``:
+    the value's relative gap, and the worst gradient column against
+    COLUMN_TOL · Σ|r·x| + REPLAY_ROW_ABS · Σ w·|x| (sparse_parity's
+    allowance), the hybrid gradient mapped back to original space."""
+    v_h, g_h = hs.value_and_gradient(loss, hs.to_permuted_space(hb, w), hb)
+    g_h = hs.to_original_space(hb, g_h)
+    v_e, g_e = sagg.value_and_gradient(loss, w, batch)
+    r = residual(torch, loss, sagg.margins(batch, w), batch)
+    w_pos = torch.where(batch.weights > 0, batch.weights,
+                        torch.zeros_like(r))
+    allowed = es.scatter_rowterm_reference(
+        batch.indices, (COLUMN_TOL * r.abs() + REPLAY_ROW_ABS * w_pos)
+        [:, None] * batch.values.abs(), batch.num_features)
+    gap = {"value_rel_gap": abs(float(v_h - v_e)) / abs(float(v_e)),
+           "gradient_column_ratio": column_ratio(torch, g_h, g_e, allowed)}
+    del r, allowed, g_h, g_e
+    return gap
+
+
+def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
+    """Config 5's default one-device layout: the first HYBRID_ROWS of the
+    9.5M training rows (or HYBRID_ROWS_CUT, where the host or the card
+    cannot hold what staging needs) through GameEstimator.fit with a
+    default FixedEffectDataConfiguration, then the same rows on the ELL
+    layout in the same process."""
+    from photon_ml_torch.ops import hybrid_sparse as hs
+    from photon_ml_torch.ops import sparse_aggregators as sagg
+    from photon_ml_torch.ops.kernels import cold_grad as cg
+    from photon_ml_torch.ops.kernels import ell_scatter as es
+    from photon_ml_torch.ops.kernels import stream_fused as sf
+
+    t0 = time.perf_counter()
+    plan = hybrid_reckoning(np, torch, train, HYBRID_ROWS)
+    cut = None
+    if plan["host_staging_bytes"] > plan["host_available_bytes"] \
+            or plan["device_bytes"] > plan["card_free_bytes"]:
+        cut = (f"{HYBRID_ROWS} rows need {plan['host_staging_bytes']} host "
+               f"and {plan['device_bytes']} card bytes; "
+               f"{plan['host_available_bytes']} and "
+               f"{plan['card_free_bytes']} are free")
+        plan = hybrid_reckoning(np, torch, train, HYBRID_ROWS_CUT)
+    emit("hybrid_reckoning", card=card, **plan, cut=cut,
+         seconds=time.perf_counter() - t0)
+    rows = plan["rows"]
+    data = train.subset(slice(0, rows))
+    counters = {"hot_margins": sf.hot_margins, "hot_rmatvec": sf.hot_rmatvec,
+                "cold_grad": cg.cold_grad,
+                "ell_scatter": es.scatter_rowterm}
+    est = sparse_estimator("cuda", hybrid=None)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():  # the hybrid path's run starts
+        fn.launches = 0
+    with StagingClock(torch, hs) as clock:
+        result, fit_s = timed_fit(torch, est, data, val, "cuda")
+    launches = {k: fn.launches for k, fn in counters.items()}  # ... ends
+    peak = torch.cuda.max_memory_allocated()
+    fit = check_sparse_fit(torch, result, "hybrid_train")
+    coord = est.coordinates["ctr"]
+    hb = coord.staged
+    classes = len(hb.cold_rowids)
+    evals = fit["gradient_evaluations"]
+    # The descent scores the coordinate twice (before and after the
+    # update): two more margins passes, each one hot_margins and one
+    # ell_scatter launch.
+    want = {"hot_margins": evals + 2, "hot_rmatvec": evals,
+            "cold_grad": classes * evals, "ell_scatter": evals + 2}
+    if not coord.hybrid or hb.num_hot != plan["num_hot"] \
+            or classes != plan["cold_classes"] or launches != want:
+        raise AssertionError(
+            f"hybrid_train: launches {launches}, expected {want} for "
+            f"{evals} evaluations and {classes} classes (num_hot "
+            f"{hb.num_hot}, reckoned {plan['num_hot']})")
+    w = result.model.models["ctr"].coefficients.means
+    w_perm = hs.to_permuted_space(hb, w)
+    (v1, g1), _ = synced_seconds(
+        torch, lambda: hs.value_and_gradient(coord.loss, w_perm, hb))
+    (v2, g2), _ = synced_seconds(
+        torch, lambda: hs.value_and_gradient(coord.loss, w_perm, hb))
+    if not (torch.equal(v1, v2) and torch.equal(g1, g2)):
+        raise AssertionError("hybrid_train: two value-and-gradient passes "
+                             "at the same iterate differ")
+    del g1, g2
+    hybrid_eval_ms = call_ms(torch, lambda: hs.value_and_gradient(
+        coord.loss, w_perm, hb), reps=5, inner=3)
+    hot = hot_block_times(torch, hs, sf, coord, hb, w_perm)
+
+    # The same rows on the ELL layout, in this process.
+    ell_est = sparse_estimator("cuda", hybrid=False)
+    es.scatter_rowterm.launches = 0  # the ELL run starts
+    ell_result, ell_fit_s = timed_fit(torch, ell_est, data, val, "cuda")
+    ell_launches = es.scatter_rowterm.launches  # ... and ends
+    ell = check_sparse_fit(torch, ell_result, "hybrid_train, ELL")
+    if ell_launches != ell["gradient_evaluations"]:
+        raise AssertionError(
+            f"hybrid_train ELL: ell_scatter launched {ell_launches} times "
+            f"for {ell['gradient_evaluations']} gradient evaluations")
+    batch = ell_est.coordinates["ctr"].staged
+    ell_eval_ms = call_ms(torch, lambda: sagg.value_and_gradient(
+        coord.loss, w, batch), reps=5, inner=3)
+    gap = objective_gap(torch, hs, sagg, es, coord.loss, hb, batch, w)
+    emit("hybrid_train", card=card, rows=rows, val_rows=val.num_rows,
+         dim=hb.num_features, slots=SPARSE_NNZ, num_hot=hb.num_hot,
+         hot_block_columns=int(hb.X_hot.shape[1]), cold_classes=classes,
+         class_shapes=[list(r.shape) for r in hb.cold_rowids],
+         cold_slots=int(hb.cold_flat_rowids.numel()),
+         cold_present_columns=hb.num_cold_present,
+         staging_seconds={
+             "total": coord.staging_seconds,
+             "host_layout": coord.staging_seconds
+             - sum(clock.seconds.values()), **clock.seconds},
+         fit_seconds=fit_s, lbfgs=fit, launches=launches,
+         max_memory_allocated=peak,
+         ms_per_evaluation={"hybrid": hybrid_eval_ms, "ell": ell_eval_ms},
+         hot_block=hot,
+         ell={**ell, "fit_seconds": ell_fit_s, "launches": ell_launches},
+         auc={"hybrid": fit["auc"], "ell": ell["auc"]},
+         auc_diff=abs(fit["auc"] - ell["auc"]), objective_gap=gap)
+    if not (gap["value_rel_gap"] <= REPLAY_VALUE_RTOL
+            and gap["gradient_column_ratio"] <= 1.0):
+        raise AssertionError(f"hybrid_train: the hybrid and ELL objectives "
+                             f"differ at the final iterate: {gap}")
+    return {"coord": coord, "w_perm": w_perm, "launches": launches,
+            "rows": rows, "hot": hot}
+
+
+def hot_block_times(torch, hs, sf, coord, hb, w_perm) -> dict:
+    """hot_margins and hot_rmatvec on the hybrid fit's float32 hot block
+    at its final iterate, against the one library call that computes each
+    (torch.addmv, torch.mv on X.t()), with their bytes bound. The block
+    is too large for a float64 check here; the objective check of the
+    phase holds whole evaluations, and the stream kernels phase holds
+    both kernels column by column."""
+    X = hb.X_hot
+    n, h = (int(x) for x in X.shape)
+    w_hot = hs._hot_weights(hb, w_perm)
+    r = residual(torch, coord.loss, hs.margins(hb, w_perm), hb)
+    out = {}
+    for name, kernel, library, vectors in (
+            ("hot_margins", lambda: sf.hot_margins(X, w_hot, hb.offsets),
+             lambda: torch.addmv(hb.offsets, X, w_hot), h + 2 * n),
+            ("hot_rmatvec", lambda: sf.hot_rmatvec(X, r),
+             lambda: torch.mv(X.t(), r), n + h)):
+        got, want = kernel(), library()
+        nbytes = n * h * 4 + vectors * 4
+        out[name] = {
+            "n": n, "H": h, "parity_rel": float((got - want).abs().max())
+            / max(float(want.abs().max()), 1e-9),
+            "ms": device_ms(torch, kernel, reps=5, inner=3),
+            "library_ms": device_ms(torch, library, reps=5, inner=3),
+            "library_call": ("torch.addmv" if name == "hot_margins"
+                             else "torch.mv on X.t()"),
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+        del got, want
+        if not out[name]["parity_rel"] <= PARITY_REL:
+            raise AssertionError(f"hybrid_train {name}: parity_rel "
+                                 f"{out[name]['parity_rel']} against "
+                                 f"{out[name]['library_call']}")
+    return out
+
+
+# -- cold_grad kernels -----------------------------------------------------
+
+def exact_cold(torch, r, rows, vals):
+    """float64 value and Σ|terms| of each column of one class."""
+    n = r.shape[0]
+    g = torch.cat([r, r.new_zeros(1)]).double()[
+        rows.long().clamp(min=0, max=n)]
+    return (g * vals.double()).sum(1), (g * vals.double()).abs().sum(1)
+
+
+def check_cold_grad(torch, cg, r, classes, label: str,
+                    exact: bool = False, bf16: bool = False) -> dict:
+    """The kernel against its plain version over ``classes`` [(rows,
+    vals)]: within PARITY_REL of it (bit for bit, and equal to the float64
+    sum, when ``exact``), each column within COLUMN_TOL · Σ|terms| of its
+    exact sum, the same bits on two launches; with ``bf16``, the column
+    check shown to reject the kernel's sums over bfloat16-rounded inputs."""
+    got = torch.cat([cg.cold_grad(r, a, b) for a, b in classes])
+    again = torch.cat([cg.cold_grad(r, a, b) for a, b in classes])
+    want = torch.cat([cg.cold_grad_reference(r, a, b) for a, b in classes])
+    true, mag = (torch.cat(t) for t in zip(
+        *(exact_cold(torch, r, a, b) for a, b in classes)))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    rel = err / max(float(want.abs().max()) if want.numel() else 0.0, 1e-9)
+    ratio = column_ratio(torch, got.double(), true, COLUMN_TOL * mag)
+    if not torch.equal(got, again):
+        raise AssertionError(f"cold_grad {label}: two launches differ")
+    if exact and not (torch.equal(got, want)
+                      and torch.equal(got.double(), true)):
+        raise AssertionError(f"cold_grad {label}: not bit-exact on integer "
+                             f"inputs (max |err| {err})")
+    if not (rel <= PARITY_REL and ratio <= 1.0):
+        raise AssertionError(
+            f"cold_grad {label}: parity_rel {rel} (limit {PARITY_REL}), "
+            f"worst column at {ratio} of {COLUMN_TOL} · Σ|terms|")
+    bf16_ratio = None
+    if bf16:
+        rb = r.bfloat16().float()
+        coarse = torch.cat([cg.cold_grad(rb, a, b.bfloat16().float())
+                            for a, b in classes])
+        bf16_ratio = column_ratio(torch, coarse.double(), true,
+                                  COLUMN_TOL * mag)
+        if not bf16_ratio > 1.0:
+            raise AssertionError(
+                f"cold_grad {label}: the column check would pass sums of "
+                f"bfloat16-rounded inputs (worst column at {bf16_ratio})")
+    return {"shape": label, "classes": [list(a.shape) for a, _ in classes],
+            "max_abs_err": err, "parity_rel": rel, "column_ratio": ratio,
+            "bf16_column_ratio": bf16_ratio, "bit_exact": err == 0.0}
+
+
+def phase_cold_grad(np, torch, trained: dict) -> list[dict]:
+    """cold_grad at the hybrid fit's main shape (every class, with the
+    fit's own residual at its final iterate), with squared values, on an
+    all-padding class, on L = 1 classes and on integer inputs; then timed
+    over all classes of a gradient pass against the plain version and a
+    CSR matrix-vector product."""
+    from photon_ml_torch.ops import hybrid_sparse as hs
+    from photon_ml_torch.ops.kernels import cold_grad as cg
+
+    coord = trained["coord"]
+    hb = coord.staged
+    n = hb.num_rows
+    r = residual(torch, coord.loss, hs.margins(hb, trained["w_perm"]), hb)
+    main = list(zip(hb.cold_rowids, hb.cold_vals))
+    rows = [check_cold_grad(torch, cg, r, main, "main path", bf16=True)]
+    rows += [check_cold_grad(torch, cg, r, [c], f"main path, L={c[0].shape[1]}")
+             for c in main]
+    rows.append(check_cold_grad(torch, cg, r, [(a, b * b) for a, b in main],
+                                "main path, vals squared"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def synthetic(C, L, fill, integer):
+        ids = torch.randint(0, n, (C, L), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        vals = (torch.randint(-8, 9, (C, L), generator=gen, device="cuda")
+                .float() if integer else
+                torch.randn((C, L), generator=gen, device="cuda"))
+        pad = torch.rand((C, L), generator=gen, device="cuda") >= fill
+        return ids.masked_fill(pad, n), vals.masked_fill(pad, 0.0)
+
+    rows.append(check_cold_grad(torch, cg, r, [synthetic(4096, 16, 0.0,
+                                                         False)],
+                                "all padding", exact=True))
+    rows.append(check_cold_grad(torch, cg, r, [synthetic(200_000, 1, 1.0,
+                                                         False)],
+                                "L=1", bf16=True))
+    r_int = torch.randint(-4, 5, (n,), generator=gen,
+                          device="cuda").float()
+    rows.append(check_cold_grad(
+        torch, cg, r_int, [synthetic(C, L, 0.8, True) for C, L in (
+            (100_000, 1), (20_000, 16), (500, 1024), (4, 4096))],
+        "integer", exact=True))
+
+    # All classes of one gradient pass: kernel, plain version, and one
+    # CSR matrix-vector product over the same (column, row id) entries.
+    def kernel():
+        return [cg.cold_grad(r, a, b) for a, b in main]
+
+    def plain():
+        return [cg.cold_grad_reference(r, a, b) for a, b in main]
+
+    slots = sum(a.numel() for a, _ in main)
+    columns = sum(a.shape[0] for a, _ in main)
+    ids = torch.cat([a.reshape(-1) for a, _ in main]).long()
+    vals = torch.cat([b.reshape(-1) for _, b in main])
+    col = torch.repeat_interleave(
+        torch.arange(columns, device="cuda"),
+        torch.cat([torch.full((a.shape[0],), a.shape[1], device="cuda",
+                              dtype=torch.long) for a, _ in main]))
+    keep = ids < n
+    csr = torch.sparse_coo_tensor(
+        torch.stack([col[keep], ids[keep]]), vals[keep],
+        (columns, n)).coalesce().to_sparse_csr()
+    lib_err = float((torch.mv(csr, r) - torch.cat(kernel())).abs().max())
+    del ids, vals, col, keep
+    # Bytes the function must move: the (C, L) ids and values read once,
+    # r read once, the (C,) sums written once; one multiply-add a slot.
+    nbytes = slots * 8 + columns * 4 + n * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 2 * slots / PEAK_F32_FLOP_PER_S * 1e3
+    rows[0].update({
+        "ms": device_ms(torch, kernel, reps=11, inner=20),
+        "call_ms": call_ms(torch, kernel, reps=11, inner=20),
+        "plain_ms": device_ms(torch, plain, reps=5, inner=5),
+        # Per call from Python: cuSPARSE may allocate inside the call,
+        # which a graph capture would refuse.
+        "library_ms": call_ms(torch, lambda: torch.mv(csr, r), reps=11,
+                              inner=20),
+        "library_call": "torch.mv on a CSR matrix (columns x rows), timed "
+                        "per call from Python",
+        "library_max_abs_diff": lib_err,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes, "slots": slots, "columns": columns,
+        "live_entries": int(csr.values().numel()), "n": n})
+    del csr
+    emit("kernels", kernel="cold_grad", checks=len(rows), shapes=rows)
+    return rows
+
+
+# -- hybrid_parity ---------------------------------------------------------
+
+def hybrid_replay(torch, hs, coord, calls) -> dict:
+    """Each recorded card evaluation of the hybrid fit computed again on
+    the CPU coordinate's staged layout from the same permuted iterate:
+    the value's relative gap and the worst gradient column against
+    COLUMN_TOL · Σ|r·x| + REPLAY_ROW_ABS · Σ w·|x|, in permuted space."""
+    import dataclasses
+
+    hb, loss = coord.staged, coord.loss
+    magnitude = dataclasses.replace(
+        hb, X_hot=hb.X_hot.abs(),
+        cold_vals=tuple(v.abs() for v in hb.cold_vals))
+    value_gap, column = 0.0, 0.0
+    for w, value, grad in calls:
+        v_cpu, g_cpu = hs.value_and_gradient(loss, w, hb)
+        r = residual(torch, loss, hs.margins(hb, w), hb)
+        w_pos = torch.where(hb.weights > 0, hb.weights, torch.zeros_like(r))
+        allowed = hs._rowterm_gradient(
+            magnitude, COLUMN_TOL * r.abs() + REPLAY_ROW_ABS * w_pos)
+        value_gap = max(value_gap, abs(float(value - v_cpu))
+                        / abs(float(v_cpu)))
+        column = max(column, column_ratio(torch, grad, g_cpu, allowed))
+    return {"evaluations": len(calls), "value_rel_gap": value_gap,
+            "gradient_column_ratio": column}
+
+
+def phase_hybrid_parity(np, torch, card: str, parity: dict) -> None:
+    """sparse_parity's 300,000 rows in the hybrid layout, on the card and
+    on the CPU: every coefficient within PARITY_TOL after
+    PARITY_EARLY_ITERATIONS iterations, every card evaluation of that fit
+    replayed on the CPU, and TRON_PARITY_ITERATIONS TRON iterations on the
+    card with launches equal to its evaluations and H·v products."""
+    from photon_ml_torch.ops import hybrid_sparse as hs
+    from photon_ml_torch.ops.kernels import cold_grad as cg
+    from photon_ml_torch.ops.kernels import stream_fused as sf
+
+    train, val = parity["train"], parity["val"]
+
+    def fit(device, optimizer="LBFGS",
+            iterations=PARITY_EARLY_ITERATIONS):
+        est = sparse_estimator(device, optimizer, iterations, hybrid=None)
+        result, seconds = timed_fit(torch, est, train, val, device)
+        return (result.model.models["ctr"].coefficients.means.cpu(),
+                result.evaluation.metrics["AUC"],
+                result.history.records[-1]["solver"], seconds,
+                est.coordinates["ctr"])
+
+    log = EvaluationLog(hs)
+    with log:
+        cuda = fit("cuda")
+    cpu = fit("cpu")
+    replay = hybrid_replay(torch, hs, cpu[4], log.calls)
+    diff = float((cuda[0] - cpu[0]).abs().max())
+    classes = len(cuda[4].staged.cold_rowids)
+    cg.cold_grad.launches = 0  # the TRON run starts
+    sf.hot_rmatvec.launches = 0
+    tron = fit("cuda", "TRON", TRON_PARITY_ITERATIONS)
+    tron_launches = {"cold_grad": cg.cold_grad.launches,  # ... and ends
+                     "hot_rmatvec": sf.hot_rmatvec.launches}
+    passes = tron[2]["gradient_evaluations"] \
+        + tron[2]["hessian_vector_products"]
+    emit("hybrid_parity", card=card, rows=train.num_rows,
+         num_hot=cuda[4].staged.num_hot, cold_classes=classes,
+         iterations=PARITY_EARLY_ITERATIONS, coefficient_max_diff=diff,
+         replay=replay, auc={"cuda": cuda[1], "cpu": cpu[1],
+                             "cuda TRON": tron[1]},
+         solver={"cuda": cuda[2], "cpu": cpu[2], "cuda TRON": tron[2]},
+         fit_seconds={"cuda": cuda[3], "cpu": cpu[3], "cuda TRON": tron[3]},
+         tron_launches=tron_launches, tolerance=PARITY_TOL)
+    if replay["evaluations"] != cuda[2]["gradient_evaluations"]:
+        raise AssertionError(
+            f"hybrid_parity: recorded {replay['evaluations']} card "
+            f"evaluations, the solver reports "
+            f"{cuda[2]['gradient_evaluations']}")
+    if tron_launches != {"cold_grad": classes * passes,
+                         "hot_rmatvec": passes} \
+            or tron[2]["hessian_vector_products"] == 0 \
+            or not bool(torch.isfinite(tron[0]).all()):
+        raise AssertionError(f"hybrid_parity TRON: launches {tron_launches} "
+                             f"for {passes} passes over {classes} classes "
+                             f"(solver: {tron[2]})")
+    if not (diff <= PARITY_TOL
+            and replay["value_rel_gap"] <= REPLAY_VALUE_RTOL
+            and replay["gradient_column_ratio"] <= 1.0):
+        raise AssertionError(
+            f"hybrid_parity: coefficients after {PARITY_EARLY_ITERATIONS} "
+            f"iterations {diff} apart (limit {PARITY_TOL}); replay {replay}")
+
+
 def main() -> int:
     import torch
 
@@ -1744,13 +2267,21 @@ def main() -> int:
     del sparse_trained
     torch.cuda.empty_cache()
     stream_trained = phase_stream_train(np, torch, card, train5, val5)
-    del train5, val5
     stream_checks = phase_stream_kernels(np, torch, stream_trained)
     stream_launches = stream_trained["launches"]
     del stream_trained
     torch.cuda.empty_cache()
+    hybrid_trained = phase_hybrid_train(np, torch, card, train5, val5)
+    del train5, val5
+    cold_checks = phase_cold_grad(np, torch, hybrid_trained)
+    hybrid_launches = hybrid_trained["launches"]
+    hybrid_rows = hybrid_trained["rows"]
+    hybrid_hot = hybrid_trained["hot"]
+    del hybrid_trained
+    torch.cuda.empty_cache()
     parity = phase_sparse_parity(np, torch, card)
     phase_stream_parity(np, torch, card, parity)
+    phase_hybrid_parity(np, torch, card, parity)
 
     main_shape = next(c for c in checks if c["n"] == 64
                       and c["cache"] == "float32")
@@ -1798,6 +2329,7 @@ def main() -> int:
         "launches": sparse_launches["lbfgs"],
         "tron_launches": sparse_launches["tron"],
         "stream_launches": stream_launches["ell_scatter"],
+        "hybrid_launches": hybrid_launches["ell_scatter"],
         "max_abs_err": max(c["max_abs_err"] for c in ell_checks),
         "parity_rel": max(c["parity_rel"] for c in ell_checks),
         "column_ratio": max(c["column_ratio"] for c in ell_checks),
@@ -1820,6 +2352,7 @@ def main() -> int:
             "source": "photon_ml_torch/csrc/stream_fused.cu",
             "replaces": f"photon_ml_tpu/ops/kernels/stream_fused.py:{line}",
             "launches": stream_launches[name],
+            "hybrid_launches": hybrid_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "parity_rel": max(c["parity_rel"] for c in mine),
             "term_ratio": max(c["term_ratio"] for c in mine),
@@ -1833,11 +2366,29 @@ def main() -> int:
             "by_dtype": {c["dtype"]: {k: c[k] for k in (
                 "ms", "call_ms", "plain_ms", "library_ms", "library_call",
                 "bound_ms")} for c in mine if c["shape"] == "main"},
+            "hybrid_block": hybrid_hot[name],
             "checks": len(mine)})
-    # The TPU kernels the port has not reached yet (ROADMAP.md §B).
-    to_port = [
-        {"replaces": "dev-scripts/exp_cold_gather.py:58",
-         "name": "fused_cold_grad", "slice": 4}]
+    main_cold = cold_checks[0]
+    table.append({
+        "name": "cold_grad", "route": "cuda",
+        "source": "photon_ml_torch/csrc/cold_grad.cu",
+        "replaces": "dev-scripts/exp_cold_gather.py:58",
+        "launches": hybrid_launches["cold_grad"],
+        "max_abs_err": max(c["max_abs_err"] for c in cold_checks),
+        "parity_rel": max(c["parity_rel"] for c in cold_checks),
+        "column_ratio": max(c["column_ratio"] for c in cold_checks),
+        "ms": main_cold["ms"], "plain_ms": main_cold["plain_ms"],
+        "bound_ms": main_cold["bound_ms"], "bound_by": main_cold["bound_by"],
+        "library_ms": main_cold["library_ms"],
+        "library_call": main_cold["library_call"],
+        "call_ms": main_cold["call_ms"],
+        "shape": (f"all {len(main_cold['classes'])} classes of a hybrid "
+                  f"gradient pass, n={main_cold['n']} ({hybrid_rows} "
+                  f"hybrid_train rows), {main_cold['columns']} columns, "
+                  f"{main_cold['slots']} slots"),
+        "checks": len(cold_checks)})
+    # Every TPU kernel of the repo has its port (ROADMAP.md §B).
+    to_port = []
     print(json.dumps({"kernels": table, "to_port": to_port}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -96,8 +96,10 @@ class FixedEffectDataConfiguration:
     dimension over a model mesh axis: slice 9 of the port.
     ``feature_dtype``: on-device feature storage; only float32 is ported.
     ``hybrid`` (sparse shards only): the hot-dense / cold-class layout.
-    ``None`` = automatic, which on one device is the hybrid layout (slice
-    4 of the port); ``False`` selects the ELL layout."""
+    ``None`` = automatic, which on one device is the hybrid layout, as in
+    the reference (and the ELL layout under ``feature_sharded``, slice 9);
+    ``True`` asks for the hybrid layout and ``False`` for the ELL
+    layout."""
 
     feature_shard_id: str
     feature_sharded: bool = False

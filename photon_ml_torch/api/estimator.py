@@ -8,9 +8,10 @@ regularization-weight grid), evaluates each candidate on validation data,
 and exposes best-model selection (``fit(data, validationData, configs) →
 Seq[(GameModel, EvaluationResults, config)]``).
 
-It builds dense and sparse (ELL) fixed-effect coordinates and unprojected
-random-effect coordinates on ``device`` (``cuda`` unless the caller
-passes ``"cpu"``), where the reference takes a mesh; with
+It builds dense and sparse fixed-effect coordinates (the hybrid hot/cold
+layout by default, as the reference does on one device, or ELL) and
+unprojected random-effect coordinates on ``device`` (``cuda`` unless the
+caller passes ``"cpu"``), where the reference takes a mesh; with
 ``streaming=StreamingConfig(...)`` a sparse fixed effect becomes a
 row-streamed coordinate. Not ported yet, each raising and naming the
 slice that ports it: checkpoints, span traces, the run ledger,

@@ -1,15 +1,23 @@
-"""Sparse fixed-effect coordinate on the ELL layout (the Criteo path).
+"""Sparse fixed-effect coordinate: ELL / hybrid layouts (the Criteo path).
 
-Port of ``photon_ml_tpu/game/coordinates/sparse_fixed.py`` on one device
-and the ELL layout (``hybrid=False``): the solve is
-``optim/sparse_problem.run`` where the reference runs its mesh twin
-(``parallel/sparse_problem.run``), and every gradient, H·v and Hessian
-diagonal goes through the ``ell_scatter`` kernel on a CUDA device.
+Port of ``photon_ml_tpu/game/coordinates/sparse_fixed.py`` on one device.
+Two layouts, as in the reference:
 
-Not ported yet, each raising if asked for: the hot/cold hybrid layout
-(``hybrid=True``, and ``hybrid=None``, which the reference resolves to it
-on one device) is slice 4; ``feature_sharded=True`` is slice 9;
-down-sampling and bf16 feature storage are slice 6.
+- ``hybrid`` (the default, ``hybrid=None``, as the reference resolves it
+  on one device; or ``hybrid=True``): the hot-dense / cold-class layout
+  of ``ops/hybrid_sparse.py``, solved in its permuted feature space by
+  ``optim/sparse_problem.run_hybrid``. On a CUDA device the hot block
+  goes through the ``hot_margins`` / ``hot_rmatvec`` kernels, the cold
+  margins through ``ell_scatter`` and every cold gradient, H·v and
+  Hessian diagonal through ``cold_grad``;
+- ELL (``hybrid=False``): ``optim/sparse_problem.run`` where the
+  reference runs its mesh twin (``parallel/sparse_problem.run``), every
+  gradient, H·v and Hessian diagonal through the ``ell_scatter`` kernel
+  on a CUDA device.
+
+Not ported yet, each raising if asked for: ``feature_sharded=True`` and
+the data-sharded hybrid layout are slice 9; down-sampling and bf16
+feature storage are slice 6.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from photon_ml_torch.data.sparse import SparseBatch
 from photon_ml_torch.device import DeviceLike, resolve_device
 from photon_ml_torch.game.models import FixedEffectModel
 from photon_ml_torch.models.coefficients import Coefficients
+from photon_ml_torch.ops import hybrid_sparse
 from photon_ml_torch.ops import sparse_aggregators as sagg
 from photon_ml_torch.ops.losses import PointwiseLoss
 from photon_ml_torch.optim import sparse_problem
@@ -41,18 +50,20 @@ Tensor = torch.Tensor
 
 
 class SparseFixedEffectCoordinate:
-    """Fixed-effect GLM over an ELL sparse shard (the Criteo path).
+    """Fixed-effect GLM over a sparse shard (the Criteo path).
 
     Reference parity: the FixedEffectCoordinate contract, with the sparse
-    gather/scatter objective (``ops/sparse_aggregators.py``) in place of
-    dense matrix products — the analogue of the reference training on
-    sparse Breeze vectors with PalDB index maps.
+    objective (``ops/hybrid_sparse.py`` or ``ops/sparse_aggregators.py``)
+    in place of dense matrix products — the analogue of the reference
+    training on sparse Breeze vectors with PalDB index maps.
 
     Residency: ``__init__`` stages the shard, labels and weights on
-    ``device`` once (``cuda`` unless the caller passes ``"cpu"``), and on
-    a card builds the column layout the ``ell_scatter`` kernel reads. Per
-    coordinate-descent step only the (n,) offsets and the warm start
-    move. ``last_solve`` describes the latest ``train_model`` solve.
+    ``device`` once (``cuda`` unless the caller passes ``"cpu"``): the
+    hybrid layout (``hybrid=None`` or ``True``), or the ELL batch
+    (``hybrid=False``), and on a card the column layout the
+    ``ell_scatter`` kernel reads. Per coordinate-descent step only the
+    (n,) offsets and the warm start move. ``last_solve`` describes the
+    latest ``train_model`` solve; ``staging_seconds`` what staging took.
 
     Normalization is not supported here (the reference normalizes dense
     shards only).
@@ -67,11 +78,15 @@ class SparseFixedEffectCoordinate:
         shard = dataset.feature_shards[shard_id]
         if not isinstance(shard, SparseShard):
             raise TypeError(f"shard {shard_id!r} is not sparse")
-        if hybrid is None or hybrid:
-            raise not_ported(
-                "the hot/cold hybrid sparse layout (hybrid=True, and "
-                "hybrid=None, which resolves to it on one device; pass "
-                "hybrid=False for the ELL layout)", 4)
+        if hybrid is None:
+            self.hybrid = not feature_sharded
+        else:
+            self.hybrid = bool(hybrid)
+            if self.hybrid and feature_sharded:
+                raise ValueError(
+                    "hybrid=True is incompatible with feature_sharded "
+                    "(the hybrid layout needs the permuted coefficient "
+                    "space replicated on every shard)")
         if feature_sharded:
             raise not_ported("feature_sharded=True", 9)
         check_feature_dtype(feature_dtype)
@@ -85,7 +100,7 @@ class SparseFixedEffectCoordinate:
         self._dim = int(shard.num_features)
         self.last_solve: Optional[dict] = None
         t0 = time.perf_counter()
-        self._staged = SparseBatch(
+        batch = SparseBatch(
             indices=torch.from_numpy(np.asarray(shard.indices, np.int32)),
             values=torch.from_numpy(np.asarray(shard.values, np.float32)),
             labels=torch.from_numpy(np.asarray(dataset.response,
@@ -93,11 +108,20 @@ class SparseFixedEffectCoordinate:
             weights=torch.from_numpy(np.asarray(dataset.weights,
                                                 np.float32)),
             offsets=torch.zeros(dataset.num_rows, dtype=torch.float32),
-            num_features=self._dim).to(self.device)
+            num_features=self._dim)
+        self._ii_perm: Optional[int] = None
+        if self.hybrid:
+            self._staged = hybrid_sparse.build_hybrid(batch,
+                                                      device=self.device)
+            if self.intercept_index is not None:
+                self._ii_perm = int(
+                    self._staged.inv_perm[self.intercept_index])
+        else:
+            self._staged = batch.to(self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        # Copying the shard to the device and, on a card, sorting its
-        # column layout: paid once per coordinate.
+        # Building the layout on the device (and, on a card, the column
+        # layout of its scatter): paid once per coordinate.
         self.staging_seconds = time.perf_counter() - t0
 
     @staticmethod
@@ -110,9 +134,10 @@ class SparseFixedEffectCoordinate:
         return self._dim
 
     @property
-    def staged(self) -> SparseBatch:
-        """The staged batch: device tensors (offsets zero) and, on a card,
-        the column layout."""
+    def staged(self):
+        """The staged batch (offsets zero): a HybridSparseBatch or an ELL
+        SparseBatch of device tensors and, on a card, its scatter's column
+        layout."""
         return self._staged
 
     def with_optimization_config(
@@ -128,7 +153,7 @@ class SparseFixedEffectCoordinate:
         c.last_solve = None
         return c
 
-    def _batch(self, offsets) -> SparseBatch:
+    def _batch(self, offsets):
         return dataclasses.replace(self._staged, offsets=torch.as_tensor(
             offsets, dtype=torch.float32, device=self.device))
 
@@ -141,10 +166,16 @@ class SparseFixedEffectCoordinate:
         cfg = dataclasses.replace(
             self.config, variance_computation=VarianceComputationType.NONE)
         stats = sparse_problem.SolveStats()
-        coef, res = sparse_problem.run(
-            self.loss, self._batch(offsets), cfg,
-            initial=Coefficients(w0), intercept_index=self.intercept_index,
-            stats=stats)
+        if self.hybrid:
+            coef, res = sparse_problem.run_hybrid(
+                self.loss, self._batch(offsets), cfg,
+                initial=Coefficients(w0),
+                intercept_index_permuted=self._ii_perm, stats=stats)
+        else:
+            coef, res = sparse_problem.run(
+                self.loss, self._batch(offsets), cfg,
+                initial=Coefficients(w0),
+                intercept_index=self.intercept_index, stats=stats)
         self.last_solve = {
             "optimizer": resolve_optimizer_config(
                 cfg.optimizer, cfg.regularization.l1_weight() > 0.0
@@ -168,8 +199,15 @@ class SparseFixedEffectCoordinate:
                 "FULL variance needs the dense d×d Hessian — use SIMPLE at "
                 "sparse scale (as the reference does)")
         means = model.coefficients.means.to(self.device)
-        diag = sparse_problem.make_hessian_diagonal(
-            self.loss, self._batch(offsets))(means)
+        batch = self._batch(offsets)
+        if self.hybrid:
+            diag = hybrid_sparse.to_original_space(
+                batch, hybrid_sparse.hessian_diagonal(
+                    self.loss, hybrid_sparse.to_permuted_space(batch, means),
+                    batch))
+        else:
+            diag = sparse_problem.make_hessian_diagonal(
+                self.loss, batch)(means)
         mask = torch.as_tensor(intercept_mask(self.dim, self.intercept_index),
                                device=self.device)
         var = variances_from_diagonal(
@@ -179,8 +217,12 @@ class SparseFixedEffectCoordinate:
 
     def score(self, model: FixedEffectModel) -> Tensor:
         """(n,) X @ w over the staged shard (its offsets are zeros)."""
-        return sagg.margins(self._staged,
-                            model.coefficients.means.to(self.device))
+        means = model.coefficients.means.to(self.device)
+        if self.hybrid:
+            return hybrid_sparse.margins(
+                self._staged,
+                hybrid_sparse.to_permuted_space(self._staged, means))
+        return sagg.margins(self._staged, means)
 
     def initial_model(self) -> FixedEffectModel:
         return FixedEffectModel(

@@ -1,0 +1,407 @@
+"""Hybrid hot-dense / cold-class sparse GLM aggregates (the Criteo path).
+
+Port of ``photon_ml_tpu/ops/hybrid_sparse.py`` on one device. Reference
+parity: the same ``ValueAndGradientAggregator`` /
+``HessianVectorAggregator`` contracts as ``ops/sparse_aggregators.py``,
+over a layout that splits the Zipf-distributed feature space in two:
+
+- **hot columns** (count ≥ ``hot_threshold``, at most ``max_hot``) form a
+  dense (n, k) block: margins and gradient are a matrix-vector product
+  and its transpose;
+- **cold columns** are relabeled into count-descending order (a static
+  permutation of the feature space; the GLM objective is permutation-
+  equivariant, so the solve runs in permuted space and maps back once per
+  fit) and stored column-contiguous in power-of-two count classes,
+  padded (C, L) blocks of row ids (padding ``n``) and values (padding 0).
+
+Staging (:func:`build_hybrid`) is the reference's host numpy, call for
+call, so ``perm``, ``inv_perm``, ``num_hot``, ``class_starts``, every
+class's arrays and the hot block equal the reference's bit for bit. The
+(n, k) float32 hot block is never built on the host (at 4.75M rows it
+is 34 GB): its entries are scattered straight into a zero tensor on the
+target device.
+
+Where the reference leaves the work to XLA, the port runs its kernels on
+a card, and their plain versions on CPU tensors:
+
+- the hot block through ``stream_fused.hot_margins`` (``base`` = the
+  offsets) and ``stream_fused.hot_rmatvec``, float32. The block is stored
+  with its columns padded by zero columns to a multiple of ``HOT_ALIGN``
+  (and ``w`` with zeros), so every row starts on 16 bytes and the kernels
+  take their vector loads;
+- the cold margins' scatter ``zeros(n+1).at[rowids].add(products)``
+  through ``ell_scatter`` over a column layout of the flat cold row ids
+  with dim = n, built once per staged batch (padding id n ≥ dim adds
+  nothing). ``index_add_`` would add with float atomics, so two passes
+  would differ in their last bits;
+- the cold gradient, the H·v row term and the Hessian diagonal's cold
+  term through ``cold_grad``, one launch per class: the gather
+  ``r[rowids]`` and the padded row sums in one pass.
+
+The Hessian diagonal's hot term ``r @ X_hot²`` is summed over row blocks
+of at most ``DIAG_BLOCK_ROWS`` rows in block order, so no (n, k) squared
+temporary exists.
+
+Not ported: ``HybridShards``, ``build_hybrid_shards`` and ``local_shard``
+(the data-sharded composition; slice 9, reached only through a mesh,
+which the port does not have yet), and bfloat16 hot blocks (slice 6; the
+coordinate refuses them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from photon_ml_torch.data.sparse import SparseBatch
+from photon_ml_torch.ops.kernels import cold_grad, ell_scatter, stream_fused
+from photon_ml_torch.ops.kernels.ell_scatter import ColumnLayout
+from photon_ml_torch.ops.losses import PointwiseLoss
+
+Tensor = torch.Tensor
+
+# The hot block's stored width is a multiple of this many float32 columns
+# (16 bytes), the zero columns past num_hot inert in every product.
+HOT_ALIGN = 4
+# Rows per block of the Hessian diagonal's hot term.
+DIAG_BLOCK_ROWS = 262_144
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridSparseBatch:
+    """Hot-dense + cold-class layout of one sparse example batch.
+
+    The feature space is PERMUTED: new column order is
+    [hot columns (count desc) | cold present columns (count desc) |
+    absent columns]. ``perm`` maps new → original column ids;
+    ``inv_perm`` maps original → new. Coefficient vectors seen by the
+    ops here live in the permuted space.
+
+    ``X_hot`` holds ``num_hot`` columns and zero columns up to a multiple
+    of ``HOT_ALIGN``. ``cold_flat_rowids`` is every class's row ids in
+    class order, flat, and ``cold_layout`` its column layout over dim = n,
+    which the ``ell_scatter`` kernel reads; :meth:`to` builds it on a CUDA
+    device. ``dataclasses.replace`` of the labels, weights or offsets
+    keeps both.
+    """
+
+    X_hot: Tensor  # (n, k_pad) float32
+    cold_rowids: tuple[Tensor, ...]  # per class: (C, L) int32, pad == n
+    cold_vals: tuple[Tensor, ...]  # per class: (C, L) float32, pad == 0
+    labels: Tensor  # (n,)
+    weights: Tensor  # (n,)
+    offsets: Tensor  # (n,)
+    perm: Tensor  # (d,) int32: new col -> original col
+    inv_perm: Tensor  # (d,) int32: original col -> new col
+    num_features: int
+    num_hot: int
+    # Per class: first permuted column id (hot block excluded).
+    class_starts: tuple[int, ...]
+    cold_flat_rowids: Tensor  # (T,) int32
+    cold_layout: Optional[ColumnLayout] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.labels.shape[0])
+
+    @property
+    def dim(self) -> int:
+        return self.num_features
+
+    @property
+    def num_cold_present(self) -> int:
+        return sum(int(r.shape[0]) for r in self.cold_rowids)
+
+    @property
+    def device(self) -> torch.device:
+        return self.labels.device
+
+    def to(self, device) -> "HybridSparseBatch":
+        """This batch on ``device``, contiguous; on a CUDA device the cold
+        scatter's column layout is built here, once."""
+        device = torch.device(device)
+
+        def put(t):
+            return t.to(device).contiguous()
+
+        fields = {f.name: getattr(self, f.name)
+                  for f in dataclasses.fields(self) if f.name != "cold_layout"}
+        for name, value in fields.items():
+            if isinstance(value, Tensor):
+                fields[name] = put(value)
+            elif name in ("cold_rowids", "cold_vals"):
+                fields[name] = tuple(put(t) for t in value)
+        layout = self.cold_layout
+        if layout is None or layout.device != device:
+            layout = _cold_layout(fields["cold_flat_rowids"],
+                                  self.num_rows, device)
+        return HybridSparseBatch(**fields, cold_layout=layout)
+
+
+def _cold_layout(flat_rowids: Tensor, n: int,
+                 device: torch.device) -> Optional[ColumnLayout]:
+    if device.type != "cuda":
+        return None
+    return ell_scatter.build_layout(flat_rowids.view(-1, 1), n)
+
+
+def _default_hot_threshold(n: int) -> int:
+    """The reference's float32 hot/cold split point, max(8, n/2048): the
+    dense block's bytes make fewer columns worth densifying. (Its
+    bfloat16 blocks use n/4096; the port stores float32 only.)"""
+    return max(8, n // 2048)
+
+
+def build_hybrid(batch: SparseBatch, hot_threshold: Optional[int] = None,
+                 max_hot: int = 4096, device=None) -> HybridSparseBatch:
+    """Stage an ELL SparseBatch into the hybrid layout on ``device`` (the
+    batch's own by default), once.
+
+    ``hot_threshold``: columns with at least this many nonzeros densify
+    (default :func:`_default_hot_threshold`). ``max_hot`` caps the dense
+    block's width. The permutation and the cold classes are the
+    reference's host numpy; the hot entries are scattered into the block
+    on ``device``.
+    """
+    device = torch.device(device) if device is not None else batch.device
+    indices = batch.indices.cpu().numpy()
+    values = batch.values.cpu().numpy()
+    n, slots = indices.shape
+    d = int(batch.num_features)
+    if hot_threshold is None:
+        hot_threshold = _default_hot_threshold(n)
+
+    flat_col = indices.reshape(-1)
+    flat_row = np.repeat(np.arange(n, dtype=np.int32), slots)
+    flat_val = values.reshape(-1)
+    live = (flat_col < d) & (flat_val != 0.0)
+    counts = np.bincount(flat_col[live], minlength=d)
+
+    # Permuted order: count-descending (stable → ties break on column id).
+    order_desc = np.argsort(-counts, kind="stable").astype(np.int32)
+    k = int(min(max_hot, (counts >= hot_threshold).sum()))
+
+    inv_perm = np.empty(d, np.int32)
+    inv_perm[order_desc] = np.arange(d, dtype=np.int32)
+
+    new_col = inv_perm[np.minimum(flat_col, d - 1)]
+    hot_sel = live & (new_col < k)
+    X_hot = _fill_hot(hot_sel.reshape(n, slots), new_col.reshape(n, slots),
+                      values, k, device)
+    del hot_sel
+
+    # Cold entries, column-contiguous in permuted order.
+    cold_sel = live & (new_col >= k)
+    c_new = new_col[cold_sel] - k
+    c_row = flat_row[cold_sel]
+    c_val = flat_val[cold_sel]
+    del flat_row, live, new_col, cold_sel
+    order = np.argsort(c_new, kind="stable")
+    c_new, c_row, c_val = c_new[order], c_row[order], c_val[order]
+    cold_counts = counts[order_desc][k:]  # descending
+    present = int((cold_counts > 0).sum())
+    col_start = np.concatenate(
+        [[0], np.cumsum(cold_counts[:present])[:-1]]).astype(np.int64)
+
+    # Power-of-two count classes over the present cold columns; counts are
+    # descending, so each class is one contiguous slice of columns, and
+    # descending class order is the permuted column layout.
+    rowids_cls: list[np.ndarray] = []
+    vals_cls: list[np.ndarray] = []
+    class_starts: list[int] = []
+    if present:
+        cls = np.ceil(np.log2(np.maximum(
+            cold_counts[:present], 1))).astype(np.int64)
+        for kk in np.unique(cls)[::-1]:
+            sel = np.flatnonzero(cls == kk)
+            L = 1 << int(kk)
+            C = sel.size
+            rp = np.full((C, L), n, np.int32)
+            vp = np.zeros((C, L), np.float32)
+            # Vectorized fill: position of each entry within its column.
+            starts = col_start[sel]
+            cnts = cold_counts[sel].astype(np.int64)
+            total = int(cnts.sum())
+            colpos = np.arange(total) - np.repeat(
+                np.concatenate([[0], np.cumsum(cnts)[:-1]]), cnts)
+            src = np.repeat(starts, cnts) + colpos
+            crow = np.repeat(np.arange(C, dtype=np.int64), cnts)
+            rp[crow, colpos] = c_row[src]
+            vp[crow, colpos] = c_val[src]
+            rowids_cls.append(rp)
+            vals_cls.append(vp)
+            class_starts.append(int(sel[0]))
+
+    def put(a, dtype=None):
+        t = torch.as_tensor(a)
+        return t.to(device=device, dtype=dtype or t.dtype).contiguous()
+
+    rowids = tuple(put(a) for a in rowids_cls)
+    flat = (torch.cat([r.reshape(-1) for r in rowids]) if rowids
+            else torch.zeros(0, dtype=torch.int32, device=device))
+    return HybridSparseBatch(
+        X_hot=X_hot,
+        cold_rowids=rowids,
+        cold_vals=tuple(put(a) for a in vals_cls),
+        labels=put(batch.labels, torch.float32),
+        weights=put(batch.weights, torch.float32),
+        offsets=put(batch.offsets, torch.float32),
+        perm=put(order_desc),
+        inv_perm=put(inv_perm),
+        num_features=d,
+        num_hot=k,
+        class_starts=tuple(class_starts),
+        cold_flat_rowids=flat,
+        cold_layout=_cold_layout(flat, n, device))
+
+
+def _fill_hot(hot: np.ndarray, new_col: np.ndarray, values: np.ndarray,
+              k: int, device: torch.device) -> Tensor:
+    """The (n, k_pad) float32 hot block on ``device``: zeros, then the hot
+    entries ``hot`` (n, slots) at (row, ``new_col``), one slot at a time.
+    Within a slot every row appears once, so each copy is deterministic,
+    and a later slot overwrites an earlier one, as the reference's
+    single numpy assignment does where a row repeats a column."""
+    n, slots = hot.shape
+    k_pad = -(-k // HOT_ALIGN) * HOT_ALIGN
+    X = torch.zeros((n, k_pad), dtype=torch.float32, device=device)
+    flat = X.view(-1)
+    for s in range(slots if k else 0):
+        rows = np.flatnonzero(hot[:, s])
+        if rows.size == 0:
+            continue
+        pos = rows * k_pad + new_col[rows, s]
+        flat.index_copy_(0, torch.from_numpy(pos).to(device),
+                         torch.from_numpy(values[rows, s]).to(device))
+    return X
+
+
+def to_permuted_space(hb: HybridSparseBatch, w: Tensor) -> Tensor:
+    """Original-space (d,) vector → permuted space (once per fit)."""
+    return torch.index_select(w, 0, hb.perm)
+
+
+def to_original_space(hb: HybridSparseBatch, w_perm: Tensor) -> Tensor:
+    """Permuted-space (d,) vector → original space (once per fit)."""
+    return torch.index_select(w_perm, 0, hb.inv_perm)
+
+
+def _hot_weights(hb: HybridSparseBatch, w_perm: Tensor) -> Tensor:
+    """The hot block's (k_pad,) coefficients: w_perm's first num_hot,
+    then zeros for the padding columns."""
+    pad = hb.X_hot.shape[1] - hb.num_hot
+    return torch.cat([w_perm[:hb.num_hot], w_perm.new_zeros(pad)])
+
+
+def _cold_products(hb: HybridSparseBatch, w_perm: Tensor,
+                   cold_vals: tuple[Tensor, ...]) -> Tensor:
+    """Flat per-entry w[col]·value products over all classes.
+
+    Column coefficients arrive by contiguous SLICE broadcast (no gather):
+    each class's columns are one run of the permuted space.
+    """
+    parts = []
+    for start, rows, vals in zip(hb.class_starts, hb.cold_rowids,
+                                 cold_vals):
+        C = rows.shape[0]
+        w_c = w_perm[hb.num_hot + start: hb.num_hot + start + C]
+        parts.append((w_c[:, None] * vals).reshape(-1))
+    return torch.cat(parts)
+
+
+def margins(hb: HybridSparseBatch, w_perm: Tensor) -> Tensor:
+    """(n,) wᵀx + offset. Hot: one matrix-vector product onto the
+    offsets. Cold: contiguous-slice broadcast products, then one scatter
+    by row."""
+    z = hb.offsets
+    if hb.num_hot:
+        z = stream_fused.hot_margins(hb.X_hot, _hot_weights(hb, w_perm),
+                                     hb.offsets)
+    if hb.cold_rowids:
+        prods = _cold_products(hb, w_perm, hb.cold_vals)
+        z = z + ell_scatter.scatter_rowterm(
+            hb.cold_flat_rowids.view(-1, 1), prods.view(-1, 1),
+            hb.num_rows, layout=hb.cold_layout)
+    return z
+
+
+def _masked(weights: Tensor, term: Tensor) -> Tensor:
+    return torch.where(weights > 0.0, weights * term,
+                       torch.zeros_like(term))
+
+
+def _cold_grad(hb: HybridSparseBatch, r: Tensor,
+               cold_vals: tuple[Tensor, ...]) -> list[Tensor]:
+    """Per class, the (C,) gradient slice: the gather r[rowids] and the
+    padded row sums in one ``cold_grad`` call."""
+    return [cold_grad.cold_grad(r, rows, vals)
+            for rows, vals in zip(hb.cold_rowids, cold_vals)]
+
+
+def _assemble_grad(hb: HybridSparseBatch, g_hot: Optional[Tensor],
+                   g_cold: list[Tensor]) -> Tensor:
+    """(d,) permuted gradient from the (k_pad,) hot part and the class
+    slices; absent (zero-count) columns sit at the permuted tail, 0."""
+    parts = []
+    if hb.num_hot:
+        parts.append(g_hot[:hb.num_hot])
+    parts.extend(g_cold)
+    d = hb.num_features
+    if not parts:
+        return torch.zeros(d, dtype=torch.float32, device=hb.device)
+    dense = torch.cat(parts)
+    if dense.shape[0] == d:
+        return dense
+    return torch.cat([dense, dense.new_zeros(d - dense.shape[0])])
+
+
+def _rowterm_gradient(hb: HybridSparseBatch, r: Tensor) -> Tensor:
+    """Σ_i r_i·x_i in PERMUTED space: hot transposed product + cold class
+    sums."""
+    g_hot = stream_fused.hot_rmatvec(hb.X_hot, r) if hb.num_hot else None
+    return _assemble_grad(hb, g_hot, _cold_grad(hb, r, hb.cold_vals))
+
+
+def value_and_gradient(loss: PointwiseLoss, w_perm: Tensor,
+                       hb: HybridSparseBatch) -> tuple[Tensor, Tensor]:
+    """(Σ w·l, Σ w·dl·x) in permuted space — the fused hot/cold pass."""
+    z = margins(hb, w_perm)
+    l, dl = loss.loss_and_dz(z, hb.labels)
+    value = torch.sum(_masked(hb.weights, l), dim=-1)
+    r = _masked(hb.weights, dl)
+    return value, _rowterm_gradient(hb, r)
+
+
+def hessian_vector(loss: PointwiseLoss, w_perm: Tensor, v_perm: Tensor,
+                   hb: HybridSparseBatch) -> Tensor:
+    """Σ w·d2l·(x·v)·x in permuted space (TRON's H·v)."""
+    z = margins(hb, w_perm)
+    xv = margins(hb, v_perm) - hb.offsets
+    d2 = loss.d2z(z, hb.labels)
+    r = _masked(hb.weights, d2) * xv
+    return _rowterm_gradient(hb, r)
+
+
+def hessian_diagonal(loss: PointwiseLoss, w_perm: Tensor,
+                     hb: HybridSparseBatch,
+                     block_rows: int = DIAG_BLOCK_ROWS) -> Tensor:
+    """diag(H) = Σ w·d2l·x² in permuted space (SIMPLE variances). The hot
+    term ``r @ X_hot²`` is summed over blocks of ``block_rows`` rows, in
+    block order."""
+    z = margins(hb, w_perm)
+    d2 = loss.d2z(z, hb.labels)
+    r = _masked(hb.weights, d2)
+    g_hot = None
+    if hb.num_hot:
+        g_hot = torch.zeros(hb.X_hot.shape[1], dtype=torch.float32,
+                            device=hb.device)
+        for i0 in range(0, hb.num_rows, block_rows):
+            block = hb.X_hot[i0:i0 + block_rows]
+            g_hot = g_hot + stream_fused.hot_rmatvec(
+                block * block, r[i0:i0 + block_rows])
+    return _assemble_grad(
+        hb, g_hot, _cold_grad(hb, r, tuple(v * v for v in hb.cold_vals)))

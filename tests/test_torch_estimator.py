@@ -6,7 +6,9 @@ the dense one) and by the port's (``device="cpu"``):
 
 - config 5 shaped: one ELL sparse fixed effect (``hybrid=False``) over a
   Zipf(1.3) shard, with a 2-point regularization-weight grid, validation
-  AUC and logistic loss, and ``select_best_model``;
+  AUC and logistic loss, and ``select_best_model``; and the same shape
+  with the default ``FixedEffectDataConfiguration``, which stages the
+  hybrid hot/cold layout in both packages;
 - config 4 shaped: a dense fixed effect and per-user and per-item random
   effects, one descent iteration, with a grouped AUC.
 
@@ -143,6 +145,44 @@ def test_refit_reuses_staged_coordinates(sparse_fits):
     train, _ = _split(from_sparse_batch(b), n)  # a fresh, equal dataset
     est.fit(train)
     assert est.coordinates["ctr"].staged is staged
+
+
+def test_default_sparse_fit_is_hybrid_and_matches_reference():
+    """A default FixedEffectDataConfiguration (hybrid=None) stages the
+    hybrid hot/cold layout in both estimators, as the reference does on
+    one device; coefficients, SIMPLE variances and validation metrics
+    agree within TOL. Both fits run to convergence: after 60 iterations
+    this fixture is not converged, and there the reference's own ELL and
+    hybrid fits part by 8.7e-3 (ROADMAP §C)."""
+    n = 5000
+    b, _ = sparse.synthetic_sparse(n, 2000, 32, seed=19)
+    rb, _ = ref_sparse.synthetic_sparse(n, 2000, 32, seed=19)
+    train, val = _split(from_sparse_batch(b), n)
+    ref_train, ref_val = _split(ref_from_sparse_batch(rb), n)
+    opt, ref_opt = _opt("SIMPLE", iterations=300)
+    est = GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {"ctr": CoordinateConfiguration(
+            FixedEffectDataConfiguration("global"), opt)},
+        ["ctr"], device="cpu",
+        validation_evaluators=["AUC", "LOGISTIC_LOSS"])
+    ref_est = RefEstimator(
+        RefTaskType.LOGISTIC_REGRESSION,
+        {"ctr": ref_configs.CoordinateConfiguration(
+            ref_configs.FixedEffectDataConfiguration("global"), ref_opt)},
+        ["ctr"], make_mesh(num_data=1, devices=jax.devices()[:1]),
+        validation_evaluators=["AUC", "LOGISTIC_LOSS"])
+    r = est.fit(train, validation_data=val)[0]
+    rr = ref_est.fit(ref_train, validation_data=ref_val)[0]
+    assert est.coordinates["ctr"].hybrid
+    assert est.coordinates["ctr"].staged.num_hot > 0
+    assert r.history.records[-1]["solver"]["converged"]
+    got, want = r.model.models["ctr"], rr.model.models["ctr"]
+    _close(got.coefficients.means, want.coefficients.means)
+    _close(got.coefficients.variances, want.coefficients.variances)
+    for key in ("AUC", "LOGISTIC_LOSS"):
+        assert abs(r.evaluation.metrics[key]
+                   - rr.evaluation.metrics[key]) <= TOL, key
 
 
 def test_dense_game_fit_matches_reference():

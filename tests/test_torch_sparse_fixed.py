@@ -1,13 +1,15 @@
-"""The port's ELL sparse fixed-effect coordinate against the reference.
+"""The port's sparse fixed-effect coordinate against the reference.
 
 A config-5 shaped fixture at CPU scale (Zipf(1.3) columns, 32 slots, an
 intercept column in every row) goes through the reference's
-``SparseFixedEffectCoordinate(hybrid=False)`` on a one-device mesh and the
-port's (``device="cpu"``, the plain ``ell_scatter``): ``train_model``
-from the same offsets with L2 (L-BFGS), with L1 (OWL-QN), and with TRON,
-``score``, and SIMPLE variances. Tolerance 5e-3 on coefficients and
-variances (the band for full solves): the scatter sums run in another
-order, and each solve stops on float32 tests. A model the reference
+``SparseFixedEffectCoordinate`` on a one-device mesh and the port's
+(``device="cpu"``, the kernels' plain versions), on the ELL layout
+(``hybrid=False``) and on the hybrid hot/cold layout (``hybrid=None``,
+the default, and ``hybrid=True``): ``train_model`` from the same offsets
+with L2 (L-BFGS), with L1 (OWL-QN), and with TRON, ``score``, and SIMPLE
+variances. Tolerance 5e-3 on coefficients and variances (the band for
+full solves): the scatter sums run in another order, and each solve
+stops on float32 tests. A model the reference
 trained crosses into the port through ``game_model_from_arrays`` and
 scores the shard identically. Every unported option raises and names
 the slice that ports it.
@@ -26,7 +28,8 @@ from photon_ml_torch.data.game_data import from_sparse_batch
 from photon_ml_torch.game.coordinates import SparseFixedEffectCoordinate
 from photon_ml_torch.models import io as model_io
 from photon_ml_torch.ops import losses
-from photon_ml_torch.optim import OptimizerConfig, OptimizerType
+from photon_ml_torch.optim import (OptimizerConfig, OptimizerType,
+                                   sparse_problem)
 from photon_ml_torch.optim.problem import (GLMOptimizationConfiguration,
                                            VarianceComputationType)
 from photon_ml_torch.optim.regularization import (RegularizationContext,
@@ -194,8 +197,102 @@ def test_reference_model_crosses_and_scores_identically(data):
         game)
 
 
+@pytest.mark.parametrize("hybrid", [None, True])
+@pytest.mark.parametrize("opt,reg,weight", [("LBFGS", "L2", 1.0),
+                                            ("LBFGS", "L1", 2.0),
+                                            ("TRON", "L2", 1.0)])
+def test_hybrid_train_model_matches_reference(data, hybrid, opt, reg,
+                                              weight):
+    """The hybrid layout (the default, and asked for) against the
+    reference's hybrid coordinate: coefficients, a warm restart and the
+    scores within TOL; the intercept is mapped into permuted space."""
+    ds, rds, offsets = data
+    cfg, ref_cfg = _configs(opt, reg, weight)
+    coord = SparseFixedEffectCoordinate(ds, "global", losses.LOGISTIC, cfg,
+                                        hybrid=hybrid, device="cpu")
+    ref = RefCoordinate(rds, "global", ref_losses.LOGISTIC, ref_cfg,
+                        _mesh(), hybrid=hybrid)
+    assert coord.hybrid and ref.hybrid
+    assert coord._ii_perm == ref._ii_perm is not None
+    assert coord.staged.num_hot == ref._staged.num_hot > 0
+    model = coord.train_model(offsets)
+    ref_model = ref.train_model(jnp.asarray(offsets))
+    w = model.coefficients.means
+    _close(w, ref_model.coefficients.means)
+    _close(coord.score(model), ref.score(ref_model), tol=TOL * 10)
+    solve = coord.last_solve
+    assert solve["optimizer"] == ("OWLQN" if reg == "L1" else opt)
+    assert solve["gradient_evaluations"] >= solve["iterations"] >= 1
+    assert (solve["hessian_vector_products"] > 0) == (opt == "TRON")
+    assert coord.staging_seconds > 0
+    if reg == "L1":
+        assert int((w == 0).sum()) > DIM // 4
+        assert float(w[DIM - 1]) != 0.0  # the intercept is not penalized
+    again = coord.train_model(offsets, initial=model)
+    _close(again.coefficients.means, w)
+
+
+def test_hybrid_simple_variances_match_reference(data):
+    ds, rds, offsets = data
+    cfg, ref_cfg = _configs("LBFGS", "L2", 1.0, "SIMPLE")
+    coord = SparseFixedEffectCoordinate(ds, "global", losses.LOGISTIC, cfg,
+                                        device="cpu")
+    ref = RefCoordinate(rds, "global", ref_losses.LOGISTIC, ref_cfg,
+                        _mesh())
+    ref_model = ref.train_model(jnp.asarray(offsets))
+    model = model_io.game_model_from_arrays(
+        "LOGISTIC_REGRESSION", {"ctr": (
+            ref_io.coordinate_meta(ref_model),
+            ref_io.coordinate_arrays(ref_model))}).models["ctr"]
+    var = coord.compute_model_variances(model, offsets).coefficients
+    ref_var = ref.compute_model_variances(
+        ref_model, jnp.asarray(offsets)).coefficients.variances
+    _close(var.variances, ref_var)
+    assert bool((var.variances > 0).all())
+    # The solve's own SIMPLE variances (run_hybrid maps them back).
+    coef, _ = sparse_problem.run_hybrid(
+        losses.LOGISTIC, coord._batch(offsets), cfg,
+        initial=model.coefficients,
+        intercept_index_permuted=coord._ii_perm)
+    _close(coef.variances, ref_var)
+    full = coord.with_optimization_config(dataclasses.replace(
+        cfg, variance_computation=VarianceComputationType.FULL))
+    with pytest.raises(NotImplementedError, match="SIMPLE"):
+        full.compute_model_variances(model, offsets)
+    with pytest.raises(NotImplementedError, match="SIMPLE"):
+        sparse_problem.run_hybrid(losses.LOGISTIC, coord._batch(offsets),
+                                  full.config)
+
+
+@pytest.mark.parametrize("option", [{"feature_dtype": "bfloat16"},
+                                    "down_sampling"])
+@pytest.mark.parametrize("hybrid", [None, True])
+def test_hybrid_unported_options_raise(data, option, hybrid):
+    cfg, _ = _configs("LBFGS", "L2", 1.0)
+    kw = {"hybrid": hybrid}
+    if option == "down_sampling":
+        cfg = dataclasses.replace(cfg, down_sampling_rate=0.5)
+    else:
+        kw.update(option)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        SparseFixedEffectCoordinate(data[0], "global", losses.LOGISTIC, cfg,
+                                    device="cpu", **kw)
+
+
+def test_hybrid_with_feature_sharded_raises(data):
+    """As in the reference: hybrid=True with feature_sharded is a
+    ValueError; hybrid=None with it resolves to ELL, which is slice 9."""
+    cfg, _ = _configs("LBFGS", "L2", 1.0)
+    with pytest.raises(ValueError, match="incompatible with feature_sharded"):
+        SparseFixedEffectCoordinate(data[0], "global", losses.LOGISTIC, cfg,
+                                    hybrid=True, feature_sharded=True,
+                                    device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        SparseFixedEffectCoordinate(data[0], "global", losses.LOGISTIC, cfg,
+                                    feature_sharded=True, device="cpu")
+
+
 @pytest.mark.parametrize("option,slice_no", [
-    ({"hybrid": None}, 4), ({"hybrid": True}, 4),
     ({"feature_sharded": True}, 9), ({"feature_dtype": "bfloat16"}, 6),
     ("down_sampling", 6)])
 def test_unported_options_raise(data, option, slice_no):
