@@ -90,7 +90,8 @@ code is non-zero:
              scatter's layout. hot_margins, hot_rmatvec, cold_grad and
              ell_scatter launches are read around the fit alone and must
              equal the evaluations (margins and scatter: plus the
-             descent's two scoring passes; cold_grad: times the classes).
+             descent's two scoring passes; cold_grad: one launch a pass
+             over every class).
              Then the same rows on the ELL layout in the same process:
              milliseconds per evaluation of each layout and both AUCs. At
              the hybrid fit's final iterate the two objectives must agree
@@ -98,13 +99,17 @@ code is non-zero:
              sparse_parity's allowance), and two hybrid value-and-gradient
              passes must give the same bits.
 13. kernels — holds cold_grad against its plain version on the card on
-             every class of the main shape with the fit's own residual,
-             with squared values, on an all-padding class, on an L = 1
-             class and bit for bit on integer inputs: each column within
-             1e-5 · Σ|terms| of its exact (float64) sum, the check shown
-             to reject bfloat16-rounded inputs, the same bits on two
-             launches. Times kernel, plain version and a CSR torch.mv over
-             all classes of a gradient pass.
+             every class of the main shape with the fit's own residual
+             (all classes in one launch through cold_grad_classes, and
+             each class alone through cold_grad), with squared values, on
+             an all-padding class, on an L = 1 class and bit for bit on
+             integer inputs: each column within 1e-5 · Σ|terms| of its
+             exact (float64) sum, the check shown to reject
+             bfloat16-rounded inputs, the same bits on two launches.
+             Times kernel, plain version and a CSR torch.mv (per call from
+             Python, and its device time from torch.profiler) over all
+             classes of a gradient pass, and each class alone beside its
+             bound.
 14. sparse_parity — the same fit at 300,000 rows on the card and on the
              CPU in one process: every coefficient within 5e-3 after 10
              iterations; every objective evaluation of the card's
@@ -124,8 +129,7 @@ code is non-zero:
              iterations, every card evaluation of that fit replayed on the
              CPU (sparse_parity's limits), and 5 TRON iterations on the
              card with cold_grad and hot_rmatvec launches equal to its
-             gradient evaluations and H·v products (cold_grad times the
-             classes).
+             gradient evaluations and H·v products.
 
 Then it prints the kernel table ({"kernels": [...]}), nvidia-smi's
 "name, power.limit" line, and as its last line
@@ -152,6 +156,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# queued_ms's spin ahead of the calls it times (about 5 ms at the H100's
+# clocks).
+QUEUE_SPIN_CYCLES = 10_000_000
 
 # Config 4 at full width (dev-scripts/flagship_movielens.py: MovieLens-20M
 # users and movies, d_global = 32, d_re = 8).
@@ -299,6 +306,38 @@ def device_ms(torch, fn, reps: int = 21, inner: int = 100) -> float:
         end.record()
         end.synchronize()
         samples.append(start.elapsed_time(end) / inner)
+    return statistics.median(samples)
+
+
+def queued_ms(torch, fn, calls: int = 10, reps: int = 11) -> float:
+    """Per-call time on the card of a call that a CUDA graph cannot
+    capture: CUDA events around ``calls`` back-to-back calls, enqueued
+    while the card spins (``torch.cuda._sleep``), so the host's own time
+    per call is out of the window; median over ``reps``. Fails where the
+    host took longer to enqueue the calls than the card spun."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        spin = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        spin.record()
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if host_ms >= spin.elapsed_time(start):
+            raise AssertionError(
+                f"queued_ms: the host took {host_ms} ms to enqueue {calls} "
+                f"calls, longer than the card's {spin.elapsed_time(start)} "
+                f"ms spin")
+        samples.append(start.elapsed_time(end) / calls)
     return statistics.median(samples)
 
 
@@ -1892,9 +1931,9 @@ def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
     evals = fit["gradient_evaluations"]
     # The descent scores the coordinate twice (before and after the
     # update): two more margins passes, each one hot_margins and one
-    # ell_scatter launch.
+    # ell_scatter launch. cold_grad: one launch a pass over every class.
     want = {"hot_margins": evals + 2, "hot_rmatvec": evals,
-            "cold_grad": classes * evals, "ell_scatter": evals + 2}
+            "cold_grad": evals, "ell_scatter": evals + 2}
     if not coord.hybrid or hb.num_hot != plan["num_hot"] \
             or classes != plan["cold_classes"] or launches != want:
         raise AssertionError(
@@ -2001,14 +2040,27 @@ def exact_cold(torch, r, rows, vals):
 
 
 def check_cold_grad(torch, cg, r, classes, label: str,
-                    exact: bool = False, bf16: bool = False) -> dict:
+                    exact: bool = False, bf16: bool = False,
+                    flat=None) -> dict:
     """The kernel against its plain version over ``classes`` [(rows,
-    vals)]: within PARITY_REL of it (bit for bit, and equal to the float64
+    vals)]: one class through ``cold_grad``, several in one launch through
+    ``cold_grad_classes`` over ``flat`` (rows, vals, table), the flat
+    arrays they are views of (by default their concatenation). Within
+    PARITY_REL of the plain version (bit for bit, and equal to the float64
     sum, when ``exact``), each column within COLUMN_TOL · Σ|terms| of its
     exact sum, the same bits on two launches; with ``bf16``, the column
     check shown to reject the kernel's sums over bfloat16-rounded inputs."""
-    got = torch.cat([cg.cold_grad(r, a, b) for a, b in classes])
-    again = torch.cat([cg.cold_grad(r, a, b) for a, b in classes])
+    if len(classes) > 1 and flat is None:
+        flat = (torch.cat([a.reshape(-1) for a, _ in classes]),
+                torch.cat([b.reshape(-1) for _, b in classes]),
+                cg.class_table([tuple(a.shape) for a, _ in classes]))
+
+    def kernel(rr, cast=lambda v: v):
+        if flat is None:
+            return cg.cold_grad(rr, classes[0][0], cast(classes[0][1]))
+        return cg.cold_grad_classes(rr, flat[0], cast(flat[1]), flat[2])
+
+    got, again = kernel(r), kernel(r)
     want = torch.cat([cg.cold_grad_reference(r, a, b) for a, b in classes])
     true, mag = (torch.cat(t) for t in zip(
         *(exact_cold(torch, r, a, b) for a, b in classes)))
@@ -2028,9 +2080,7 @@ def check_cold_grad(torch, cg, r, classes, label: str,
             f"worst column at {ratio} of {COLUMN_TOL} · Σ|terms|")
     bf16_ratio = None
     if bf16:
-        rb = r.bfloat16().float()
-        coarse = torch.cat([cg.cold_grad(rb, a, b.bfloat16().float())
-                            for a, b in classes])
+        coarse = kernel(r.bfloat16().float(), lambda v: v.bfloat16().float())
         bf16_ratio = column_ratio(torch, coarse.double(), true,
                                   COLUMN_TOL * mag)
         if not bf16_ratio > 1.0:
@@ -2038,8 +2088,34 @@ def check_cold_grad(torch, cg, r, classes, label: str,
                 f"cold_grad {label}: the column check would pass sums of "
                 f"bfloat16-rounded inputs (worst column at {bf16_ratio})")
     return {"shape": label, "classes": [list(a.shape) for a, _ in classes],
+            "entry": "cold_grad" if flat is None else "cold_grad_classes",
             "max_abs_err": err, "parity_rel": rel, "column_ratio": ratio,
             "bf16_column_ratio": bf16_ratio, "bit_exact": err == 0.0}
+
+
+def cold_bound(slots: int, columns: int, touched: int) -> dict:
+    """The least time of a cold gradient over ``slots`` (C, L) slots,
+    ``columns`` outputs and ``touched`` distinct live row ids: the ids
+    and values read once (8 bytes a slot), each r it needs read once, the
+    sums written once; one multiply-add a slot."""
+    nbytes = slots * 8 + columns * 4 + touched * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 2 * slots / PEAK_F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "slots": slots, "columns": columns,
+            "rows_touched": touched}
+
+
+def cold_class_time(torch, cg, r, rows, vals) -> dict:
+    """One class of the main shape through the one-class entry on the
+    card (graph replay), beside its own bound."""
+    C, L = (int(x) for x in rows.shape)
+    touched = int(torch.unique(rows[rows < r.shape[0]]).numel())
+    return {"C": C, "L": L,
+            "ms": device_ms(torch, lambda: cg.cold_grad(r, rows, vals),
+                            reps=11, inner=20),
+            **cold_bound(C * L, C, touched)}
 
 
 def phase_cold_grad(np, torch, trained: dict) -> list[dict]:
@@ -2056,11 +2132,17 @@ def phase_cold_grad(np, torch, trained: dict) -> list[dict]:
     n = hb.num_rows
     r = residual(torch, coord.loss, hs.margins(hb, trained["w_perm"]), hb)
     main = list(zip(hb.cold_rowids, hb.cold_vals))
-    rows = [check_cold_grad(torch, cg, r, main, "main path", bf16=True)]
+    flat = (hb.cold_flat_rowids, hb.cold_flat_vals, hb.cold_table)
+    rows = [check_cold_grad(torch, cg, r, main, "main path", bf16=True,
+                            flat=flat)]
     rows += [check_cold_grad(torch, cg, r, [c], f"main path, L={c[0].shape[1]}")
              for c in main]
-    rows.append(check_cold_grad(torch, cg, r, [(a, b * b) for a, b in main],
-                                "main path, vals squared"))
+    squared = hb.cold_flat_vals * hb.cold_flat_vals
+    rows.append(check_cold_grad(
+        torch, cg, r, list(zip(hb.cold_rowids,
+                               cg.class_views(squared, hb.cold_table))),
+        "main path, vals squared", flat=(flat[0], squared, flat[2])))
+    del squared
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def synthetic(C, L, fill, integer):
@@ -2085,13 +2167,21 @@ def phase_cold_grad(np, torch, trained: dict) -> list[dict]:
             (100_000, 1), (20_000, 16), (500, 1024), (4, 4096))],
         "integer", exact=True))
 
-    # All classes of one gradient pass: kernel, plain version, and one
-    # CSR matrix-vector product over the same (column, row id) entries.
+    # All classes of one gradient pass: the kernel (one launch), the
+    # plain version, and one CSR matrix-vector product over the same
+    # (column, row id) entries.
     def kernel():
-        return [cg.cold_grad(r, a, b) for a, b in main]
+        return cg.cold_grad_classes(r, *flat)
 
     def plain():
-        return [cg.cold_grad_reference(r, a, b) for a, b in main]
+        return cg.cold_grad_classes_reference(r, *flat)
+
+    def policy_ms(slots_per_thread):
+        """The pass under another threads-per-column policy: the same
+        kernel over another table."""
+        table = cg.class_table(hb.cold_table.shapes, slots_per_thread)
+        return device_ms(torch, lambda: cg.cold_grad_classes(
+            r, flat[0], flat[1], table), reps=5, inner=20)
 
     slots = sum(a.numel() for a, _ in main)
     columns = sum(a.shape[0] for a, _ in main)
@@ -2105,29 +2195,34 @@ def phase_cold_grad(np, torch, trained: dict) -> list[dict]:
     csr = torch.sparse_coo_tensor(
         torch.stack([col[keep], ids[keep]]), vals[keep],
         (columns, n)).coalesce().to_sparse_csr()
-    lib_err = float((torch.mv(csr, r) - torch.cat(kernel())).abs().max())
+    lib_err = float((torch.mv(csr, r) - kernel()).abs().max())
+    live = ids[keep]
+    touched = int(torch.unique(live).numel())
     del ids, vals, col, keep
-    # Bytes the function must move: the (C, L) ids and values read once,
-    # r read once, the (C,) sums written once; one multiply-add a slot.
-    nbytes = slots * 8 + columns * 4 + n * 4
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 2 * slots / PEAK_F32_FLOP_PER_S * 1e3
     rows[0].update({
         "ms": device_ms(torch, kernel, reps=11, inner=20),
+        "queued_ms": queued_ms(torch, kernel),
         "call_ms": call_ms(torch, kernel, reps=11, inner=20),
         "plain_ms": device_ms(torch, plain, reps=5, inner=5),
-        # Per call from Python: cuSPARSE may allocate inside the call,
-        # which a graph capture would refuse.
+        # cuSPARSE may allocate inside the call, which a graph capture
+        # would refuse: per call from Python, and the card's own time with
+        # the calls queued behind a spin.
         "library_ms": call_ms(torch, lambda: torch.mv(csr, r), reps=11,
                               inner=20),
-        "library_call": "torch.mv on a CSR matrix (columns x rows), timed "
-                        "per call from Python",
+        "library_device_ms": queued_ms(torch, lambda: torch.mv(csr, r)),
+        "library_call": "torch.mv on a CSR matrix (columns x rows); ms per "
+                        "call from Python, device_ms queued behind a spin",
+        # The random gathers alone: r at every live row id, one torch call.
+        "gather_ms": device_ms(torch, lambda: r.index_select(0, live),
+                               reps=11, inner=20),
+        "gather_call": "r.index_select at the live row ids",
         "library_max_abs_diff": lib_err,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bytes": nbytes, "slots": slots, "columns": columns,
-        "live_entries": int(csr.values().numel()), "n": n})
-    del csr
+        **cold_bound(slots, columns, touched),
+        "live_entries": int(csr.values().numel()), "n": n,
+        "per_class": [cold_class_time(torch, cg, r, a, b) for a, b in main],
+        "slots_per_thread_ms": {spt: policy_ms(spt)
+                                for spt in (2, 4, 8, 16, 32, 64)}})
+    del csr, live
     emit("kernels", kernel="cold_grad", checks=len(rows), shapes=rows)
     return rows
 
@@ -2142,9 +2237,8 @@ def hybrid_replay(torch, hs, coord, calls) -> dict:
     import dataclasses
 
     hb, loss = coord.staged, coord.loss
-    magnitude = dataclasses.replace(
-        hb, X_hot=hb.X_hot.abs(),
-        cold_vals=tuple(v.abs() for v in hb.cold_vals))
+    magnitude = dataclasses.replace(hb, X_hot=hb.X_hot.abs(),
+                                    cold_flat_vals=hb.cold_flat_vals.abs())
     value_gap, column = 0.0, 0.0
     for w, value, grad in calls:
         v_cpu, g_cpu = hs.value_and_gradient(loss, w, hb)
@@ -2207,13 +2301,11 @@ def phase_hybrid_parity(np, torch, card: str, parity: dict) -> None:
             f"hybrid_parity: recorded {replay['evaluations']} card "
             f"evaluations, the solver reports "
             f"{cuda[2]['gradient_evaluations']}")
-    if tron_launches != {"cold_grad": classes * passes,
-                         "hot_rmatvec": passes} \
+    if tron_launches != {"cold_grad": passes, "hot_rmatvec": passes} \
             or tron[2]["hessian_vector_products"] == 0 \
             or not bool(torch.isfinite(tron[0]).all()):
         raise AssertionError(f"hybrid_parity TRON: launches {tron_launches} "
-                             f"for {passes} passes over {classes} classes "
-                             f"(solver: {tron[2]})")
+                             f"for {passes} passes (solver: {tron[2]})")
     if not (diff <= PARITY_TOL
             and replay["value_rel_gap"] <= REPLAY_VALUE_RTOL
             and replay["gradient_column_ratio"] <= 1.0):
@@ -2380,12 +2472,17 @@ def main() -> int:
         "ms": main_cold["ms"], "plain_ms": main_cold["plain_ms"],
         "bound_ms": main_cold["bound_ms"], "bound_by": main_cold["bound_by"],
         "library_ms": main_cold["library_ms"],
+        "library_device_ms": main_cold["library_device_ms"],
         "library_call": main_cold["library_call"],
         "call_ms": main_cold["call_ms"],
+        "queued_ms": main_cold["queued_ms"],
+        "gather_ms": main_cold["gather_ms"],
         "shape": (f"all {len(main_cold['classes'])} classes of a hybrid "
-                  f"gradient pass, n={main_cold['n']} ({hybrid_rows} "
-                  f"hybrid_train rows), {main_cold['columns']} columns, "
+                  f"gradient pass in one launch, n={main_cold['n']} "
+                  f"({hybrid_rows} hybrid_train rows), "
+                  f"{main_cold['columns']} columns, "
                   f"{main_cold['slots']} slots"),
+        "per_class": main_cold["per_class"],
         "checks": len(cold_checks)})
     # Every TPU kernel of the repo has its port (ROADMAP.md §B).
     to_port = []

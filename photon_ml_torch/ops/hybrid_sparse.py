@@ -35,8 +35,10 @@ a card, and their plain versions on CPU tensors:
   nothing). ``index_add_`` would add with float atomics, so two passes
   would differ in their last bits;
 - the cold gradient, the H·v row term and the Hessian diagonal's cold
-  term through ``cold_grad``, one launch per class: the gather
-  ``r[rowids]`` and the padded row sums in one pass.
+  term through ``cold_grad.cold_grad_classes``, one launch a pass over
+  every class: the gather ``r[rowids]`` and the padded row sums in one
+  pass, over the flat row ids and values, written straight into one
+  (num_cold_present,) tensor.
 
 The Hessian diagonal's hot term ``r @ X_hot²`` is summed over row blocks
 of at most ``DIAG_BLOCK_ROWS`` rows in block order, so no (n, k) squared
@@ -51,6 +53,7 @@ coordinate refuses them).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -81,16 +84,18 @@ class HybridSparseBatch:
     ops here live in the permuted space.
 
     ``X_hot`` holds ``num_hot`` columns and zero columns up to a multiple
-    of ``HOT_ALIGN``. ``cold_flat_rowids`` is every class's row ids in
-    class order, flat, and ``cold_layout`` its column layout over dim = n,
-    which the ``ell_scatter`` kernel reads; :meth:`to` builds it on a CUDA
+    of ``HOT_ALIGN``. ``cold_flat_rowids`` and ``cold_flat_vals`` are
+    every class's row ids and values in class order, flat, where
+    ``cold_table`` says each class lies; ``cold_rowids`` and ``cold_vals``
+    are each class's (C, L) views into them, so the cold tier is held
+    once.
+    ``cold_layout`` is the flat row ids' column layout over dim = n, which
+    the ``ell_scatter`` kernel reads; :meth:`to` builds it on a CUDA
     device. ``dataclasses.replace`` of the labels, weights or offsets
-    keeps both.
+    keeps all of them.
     """
 
     X_hot: Tensor  # (n, k_pad) float32
-    cold_rowids: tuple[Tensor, ...]  # per class: (C, L) int32, pad == n
-    cold_vals: tuple[Tensor, ...]  # per class: (C, L) float32, pad == 0
     labels: Tensor  # (n,)
     weights: Tensor  # (n,)
     offsets: Tensor  # (n,)
@@ -101,6 +106,8 @@ class HybridSparseBatch:
     # Per class: first permuted column id (hot block excluded).
     class_starts: tuple[int, ...]
     cold_flat_rowids: Tensor  # (T,) int32
+    cold_flat_vals: Tensor  # (T,) float32
+    cold_table: cold_grad.ClassTable
     cold_layout: Optional[ColumnLayout] = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -114,7 +121,17 @@ class HybridSparseBatch:
 
     @property
     def num_cold_present(self) -> int:
-        return sum(int(r.shape[0]) for r in self.cold_rowids)
+        return self.cold_table.num_columns
+
+    @functools.cached_property
+    def cold_rowids(self) -> tuple[Tensor, ...]:
+        """Per class: (C, L) int32 row ids, pad == n (views)."""
+        return cold_grad.class_views(self.cold_flat_rowids, self.cold_table)
+
+    @functools.cached_property
+    def cold_vals(self) -> tuple[Tensor, ...]:
+        """Per class: (C, L) float32 values, pad == 0 (views)."""
+        return cold_grad.class_views(self.cold_flat_vals, self.cold_table)
 
     @property
     def device(self) -> torch.device:
@@ -124,17 +141,11 @@ class HybridSparseBatch:
         """This batch on ``device``, contiguous; on a CUDA device the cold
         scatter's column layout is built here, once."""
         device = torch.device(device)
-
-        def put(t):
-            return t.to(device).contiguous()
-
         fields = {f.name: getattr(self, f.name)
                   for f in dataclasses.fields(self) if f.name != "cold_layout"}
         for name, value in fields.items():
             if isinstance(value, Tensor):
-                fields[name] = put(value)
-            elif name in ("cold_rowids", "cold_vals"):
-                fields[name] = tuple(put(t) for t in value)
+                fields[name] = value.to(device).contiguous()
         layout = self.cold_layout
         if layout is None or layout.device != device:
             layout = _cold_layout(fields["cold_flat_rowids"],
@@ -209,44 +220,41 @@ def build_hybrid(batch: SparseBatch, hot_threshold: Optional[int] = None,
 
     # Power-of-two count classes over the present cold columns; counts are
     # descending, so each class is one contiguous slice of columns, and
-    # descending class order is the permuted column layout.
-    rowids_cls: list[np.ndarray] = []
-    vals_cls: list[np.ndarray] = []
-    class_starts: list[int] = []
+    # descending class order is the permuted column layout. Each class is
+    # filled in place in the flat arrays, class after class.
+    shapes: list[tuple[int, int]] = []
+    sels: list[np.ndarray] = []
     if present:
         cls = np.ceil(np.log2(np.maximum(
             cold_counts[:present], 1))).astype(np.int64)
         for kk in np.unique(cls)[::-1]:
             sel = np.flatnonzero(cls == kk)
-            L = 1 << int(kk)
-            C = sel.size
-            rp = np.full((C, L), n, np.int32)
-            vp = np.zeros((C, L), np.float32)
-            # Vectorized fill: position of each entry within its column.
-            starts = col_start[sel]
-            cnts = cold_counts[sel].astype(np.int64)
-            total = int(cnts.sum())
-            colpos = np.arange(total) - np.repeat(
-                np.concatenate([[0], np.cumsum(cnts)[:-1]]), cnts)
-            src = np.repeat(starts, cnts) + colpos
-            crow = np.repeat(np.arange(C, dtype=np.int64), cnts)
-            rp[crow, colpos] = c_row[src]
-            vp[crow, colpos] = c_val[src]
-            rowids_cls.append(rp)
-            vals_cls.append(vp)
-            class_starts.append(int(sel[0]))
+            shapes.append((sel.size, 1 << int(kk)))
+            sels.append(sel)
+    table = cold_grad.class_table(shapes)
+    flat_rows = np.full(table.num_slots, n, np.int32)
+    flat_vals = np.zeros(table.num_slots, np.float32)
+    for sel, (C, L), off in zip(sels, shapes, table.offsets):
+        rp = flat_rows[off:off + C * L].reshape(C, L)
+        vp = flat_vals[off:off + C * L].reshape(C, L)
+        # Vectorized fill: position of each entry within its column.
+        starts = col_start[sel]
+        cnts = cold_counts[sel].astype(np.int64)
+        total = int(cnts.sum())
+        colpos = np.arange(total) - np.repeat(
+            np.concatenate([[0], np.cumsum(cnts)[:-1]]), cnts)
+        src = np.repeat(starts, cnts) + colpos
+        crow = np.repeat(np.arange(C, dtype=np.int64), cnts)
+        rp[crow, colpos] = c_row[src]
+        vp[crow, colpos] = c_val[src]
 
     def put(a, dtype=None):
         t = torch.as_tensor(a)
         return t.to(device=device, dtype=dtype or t.dtype).contiguous()
 
-    rowids = tuple(put(a) for a in rowids_cls)
-    flat = (torch.cat([r.reshape(-1) for r in rowids]) if rowids
-            else torch.zeros(0, dtype=torch.int32, device=device))
+    rows_t, vals_t = put(flat_rows), put(flat_vals)
     return HybridSparseBatch(
         X_hot=X_hot,
-        cold_rowids=rowids,
-        cold_vals=tuple(put(a) for a in vals_cls),
         labels=put(batch.labels, torch.float32),
         weights=put(batch.weights, torch.float32),
         offsets=put(batch.offsets, torch.float32),
@@ -254,9 +262,11 @@ def build_hybrid(batch: SparseBatch, hot_threshold: Optional[int] = None,
         inv_perm=put(inv_perm),
         num_features=d,
         num_hot=k,
-        class_starts=tuple(class_starts),
-        cold_flat_rowids=flat,
-        cold_layout=_cold_layout(flat, n, device))
+        class_starts=tuple(int(sel[0]) for sel in sels),
+        cold_flat_rowids=rows_t,
+        cold_flat_vals=vals_t,
+        cold_table=table,
+        cold_layout=_cold_layout(rows_t, n, device))
 
 
 def _fill_hot(hot: np.ndarray, new_col: np.ndarray, values: np.ndarray,
@@ -335,21 +345,27 @@ def _masked(weights: Tensor, term: Tensor) -> Tensor:
 
 
 def _cold_grad(hb: HybridSparseBatch, r: Tensor,
-               cold_vals: tuple[Tensor, ...]) -> list[Tensor]:
-    """Per class, the (C,) gradient slice: the gather r[rowids] and the
-    padded row sums in one ``cold_grad`` call."""
-    return [cold_grad.cold_grad(r, rows, vals)
-            for rows, vals in zip(hb.cold_rowids, cold_vals)]
+               flat_vals: Tensor) -> Optional[Tensor]:
+    """The (num_cold_present,) cold gradient over every class, class
+    after class: the gather r[rowids] and the padded row sums in one
+    ``cold_grad_classes`` call over the flat row ids and ``flat_vals``;
+    None without cold classes."""
+    if not hb.cold_table.shapes:
+        return None
+    return cold_grad.cold_grad_classes(r, hb.cold_flat_rowids, flat_vals,
+                                       hb.cold_table)
 
 
 def _assemble_grad(hb: HybridSparseBatch, g_hot: Optional[Tensor],
-                   g_cold: list[Tensor]) -> Tensor:
-    """(d,) permuted gradient from the (k_pad,) hot part and the class
-    slices; absent (zero-count) columns sit at the permuted tail, 0."""
+                   g_cold: Optional[Tensor]) -> Tensor:
+    """(d,) permuted gradient from the (k_pad,) hot part and the cold
+    classes' sums; absent (zero-count) columns sit at the permuted tail,
+    0."""
     parts = []
     if hb.num_hot:
         parts.append(g_hot[:hb.num_hot])
-    parts.extend(g_cold)
+    if g_cold is not None:
+        parts.append(g_cold)
     d = hb.num_features
     if not parts:
         return torch.zeros(d, dtype=torch.float32, device=hb.device)
@@ -363,7 +379,7 @@ def _rowterm_gradient(hb: HybridSparseBatch, r: Tensor) -> Tensor:
     """Σ_i r_i·x_i in PERMUTED space: hot transposed product + cold class
     sums."""
     g_hot = stream_fused.hot_rmatvec(hb.X_hot, r) if hb.num_hot else None
-    return _assemble_grad(hb, g_hot, _cold_grad(hb, r, hb.cold_vals))
+    return _assemble_grad(hb, g_hot, _cold_grad(hb, r, hb.cold_flat_vals))
 
 
 def value_and_gradient(loss: PointwiseLoss, w_perm: Tensor,
@@ -404,4 +420,4 @@ def hessian_diagonal(loss: PointwiseLoss, w_perm: Tensor,
             g_hot = g_hot + stream_fused.hot_rmatvec(
                 block * block, r[i0:i0 + block_rows])
     return _assemble_grad(
-        hb, g_hot, _cold_grad(hb, r, tuple(v * v for v in hb.cold_vals)))
+        hb, g_hot, _cold_grad(hb, r, hb.cold_flat_vals * hb.cold_flat_vals))

@@ -129,6 +129,36 @@ def test_layout_matches_reference_bit_for_bit(pair):
         assert counts[3000:].sum() == 0  # the unused columns are absent
 
 
+def _shares_flat(views, flat, table):
+    """Each view starts at its class's offset in ``flat``'s storage."""
+    assert len(views) == len(table.shapes)
+    for v, off, shape in zip(views, table.offsets, table.shapes):
+        assert tuple(v.shape) == shape
+        assert v.untyped_storage().data_ptr() == \
+            flat.untyped_storage().data_ptr()
+        assert v.data_ptr() == flat.data_ptr() + off * flat.element_size()
+
+
+@pytest.mark.parametrize("moved", [False, True])
+def test_cold_classes_are_views_of_the_flat_arrays(pair, moved):
+    """After staging and after ``to``: the flat values are the
+    reference's classes in class order, the table matches the classes,
+    and each class's tensors are views of the flat ones."""
+    _, hb, ref = pair
+    if moved:
+        hb = hb.to("cpu")
+    np.testing.assert_array_equal(
+        hb.cold_flat_vals.numpy(),
+        np.concatenate([v.reshape(-1) for v in ref.cold_vals]
+                       or [np.zeros(0, np.float32)]))
+    assert hb.cold_flat_vals.dtype == torch.float32
+    assert hb.cold_table.shapes == tuple(
+        tuple(np.asarray(r).shape) for r in ref.cold_rowids)
+    assert hb.cold_table.num_slots == hb.cold_flat_rowids.numel()
+    _shares_flat(hb.cold_rowids, hb.cold_flat_rowids, hb.cold_table)
+    _shares_flat(hb.cold_vals, hb.cold_flat_vals, hb.cold_table)
+
+
 def _vectors(hb, seed):
     rng = np.random.default_rng(seed)
     w = (0.3 * rng.normal(size=DIM)).astype(np.float32)
@@ -192,10 +222,11 @@ def test_to_moves_and_replace_keeps_fields():
         a, b = getattr(hb, f.name), getattr(moved, f.name)
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b), f.name
-        elif f.name in ("cold_rowids", "cold_vals"):
-            assert all(torch.equal(x, y) for x, y in zip(a, b))
         elif f.name != "cold_layout":
             assert a == b, f.name
+    for a, b in zip(hb.cold_rowids + hb.cold_vals,
+                    moved.cold_rowids + moved.cold_vals):
+        assert torch.equal(a, b)
     swapped = dataclasses.replace(hb, offsets=torch.zeros(N))
     assert swapped.cold_flat_rowids is hb.cold_flat_rowids
 
@@ -235,3 +266,21 @@ def test_staged_on_cuda_matches_cpu():
     assert torch.equal(v1, v2) and torch.equal(g1, g2)
     np.testing.assert_allclose(float(v1), float(vc), rtol=RTOL)
     _close(g1.cpu(), gc.numpy())
+
+
+def test_one_cold_launch_per_pass_on_cuda():
+    """On a card: value and gradient, H·v and the Hessian diagonal each
+    launch cold_grad once, over every class."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hybrid path's kernels have no "
+                    "CPU mode (chip_smoke.py drives them on the card)")
+    batch, _ = _batches(*_zipf())
+    dev = hs.build_hybrid(batch, device="cuda")
+    assert len(dev.cold_rowids) >= 3
+    w, v = (torch.from_numpy(x).cuda() for x in _vectors(dev, 5))
+    for run in (lambda: hs.value_and_gradient(losses.LOGISTIC, w, dev),
+                lambda: hs.hessian_vector(losses.LOGISTIC, w, v, dev),
+                lambda: hs.hessian_diagonal(losses.LOGISTIC, w, dev)):
+        before = cold_grad.cold_grad.launches
+        run()
+        assert cold_grad.cold_grad.launches == before + 1
