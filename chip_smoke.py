@@ -48,18 +48,26 @@ code is non-zero:
              one ELL sparse fixed effect (hybrid=False, so ell_scatter
              gets all 9.5M training rows; L-BFGS, 60 iterations, L2 1.0)
              and validation AUC; then a TRON fit of the same coordinate.
-             ell_scatter's launch count is read around each fit alone and
-             must equal the solver's objective evaluations.
-9. kernels — holds ell_scatter against its plain version on the card at
-             the main path's shape (with the fit's own row terms), at
-             d = 512 and 2048, with uniform ids over d = 1M (short
-             columns), bit for bit on integer-valued row terms, on an
+             ell_rmatvec's launch count is read around each fit alone and
+             must equal the solver's objective evaluations (TRON: plus its
+             H·v products); scatter_rowterm, which reads (n, k) row terms,
+             must not launch there. The staged bytes (batch and layout)
+             and each fit's peak device memory are reported.
+9. kernels — holds ell_scatter's two routes against their plain versions
+             on the card at the main path's shape (with the fit's own
+             residual), at d = 512 and 2048, with uniform ids over d = 1M
+             (short columns), bit for bit on integer-valued inputs, on an
              all-padding batch and with one column in every row: each
-             column within 1e-5 · Σ|terms| of its exact (float64)
-             sum, and the column check shown to reject sums of
-             bfloat16-rounded row terms; two
-             launches must give the same bits. Times kernel, plain version
-             and library call at the main shape.
+             column within 1e-5 · Σ|terms| of its exact (float64) sum,
+             and the column check shown to reject sums of bfloat16-rounded
+             row terms (ell_rmatvec: r rounded); two launches must give
+             the same bits. ell_rmatvec (gradient, H·v and diagonal forms)
+             must give the bits of scatter_rowterm over the materialised
+             r ⊗ values (values²). Times, at the main shape, the generic
+             kernel, its plain version and index_add_; ell_rmatvec, the
+             old route (the multiply, then scatter_rowterm), its plain
+             version and a CSR torch.mv of Xᵀ; and the bytes each route
+             allocates a call.
 10. stream_train — the row-streamed config-5 fixed effect: the same
              9,500,000 training rows and 500,000 validation rows, fitted
              through GameEstimator(streaming=StreamingConfig(...)) in
@@ -92,7 +100,8 @@ code is non-zero:
              equal the evaluations (margins and scatter: plus the
              descent's two scoring passes; cold_grad: one launch a pass
              over every class).
-             Then the same rows on the ELL layout in the same process:
+             Then the same rows on the ELL layout in the same process
+             (ell_rmatvec launches equal to its evaluations):
              milliseconds per evaluation of each layout and both AUCs. At
              the hybrid fit's final iterate the two objectives must agree
              (value within 1e-5 relative, each gradient column within
@@ -1064,6 +1073,37 @@ def check_sparse_fit(torch, result, label: str) -> dict:
             **record["solver"]}
 
 
+def old_route_fit(torch, ell_scatter, est, batch, train, val) -> dict:
+    """The L-BFGS fit again, on the same staged coordinate, with the ELL
+    objective's scatters sent the old way: the row terms r ⊗ values
+    (values²) formed whole, then scatter_rowterm over the ids' generic
+    layout. Its coefficients, AUC, solve time and peak memory."""
+    from photon_ml_torch.ops import sparse_aggregators as sagg
+
+    generic = ell_scatter.build_layout(batch.indices, batch.num_features)
+
+    def materialised(b, r, square=False):
+        v = b.values * b.values if square else b.values
+        return ell_scatter.scatter_rowterm(b.indices, r[:, None] * v,
+                                           b.num_features, layout=generic)
+
+    fused = sagg._rmatvec
+    sagg._rmatvec = materialised
+    torch.cuda.reset_peak_memory_stats()
+    ell_scatter.scatter_rowterm.launches = 0
+    try:
+        result, fit_s = timed_fit(torch, est, train, val, "cuda")
+    finally:
+        sagg._rmatvec = fused
+    out = {**check_sparse_fit(torch, result, "sparse_train, old route"),
+           "fit_seconds": fit_s,
+           "launches": ell_scatter.scatter_rowterm.launches,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "means": result.model.models["ctr"].coefficients.means}
+    del generic
+    return out
+
+
 def phase_sparse_train(np, torch, card: str) -> dict:
     import copy
 
@@ -1074,36 +1114,62 @@ def phase_sparse_train(np, torch, card: str) -> dict:
     generate_s = time.perf_counter() - t0
     est = sparse_estimator("cuda")
     torch.cuda.reset_peak_memory_stats()
-    ell_scatter.scatter_rowterm.launches = 0  # the main path's run starts
+    ell_scatter.ell_rmatvec.launches = 0  # the main path's run starts
+    ell_scatter.scatter_rowterm.launches = 0
     result, fit_s = timed_fit(torch, est, train, val, "cuda")
-    launches = ell_scatter.scatter_rowterm.launches  # ... and ends here
+    launches = ell_scatter.ell_rmatvec.launches  # ... and ends here
+    generic = ell_scatter.scatter_rowterm.launches
     peak = torch.cuda.max_memory_allocated()
     fit = check_sparse_fit(torch, result, "sparse_train")
-    if launches != fit["gradient_evaluations"]:
+    # Every scatter of the path forms its row terms in the kernel: none
+    # goes through the generic route, which reads (n, k) row terms.
+    if launches != fit["gradient_evaluations"] or generic:
         raise AssertionError(
-            f"sparse_train: ell_scatter launched {launches} times for "
-            f"{fit['gradient_evaluations']} gradient evaluations")
+            f"sparse_train: ell_rmatvec launched {launches} times for "
+            f"{fit['gradient_evaluations']} gradient evaluations, "
+            f"scatter_rowterm {generic} times")
     coord = est.coordinates["ctr"]
-    layout = coord.staged.layout
+    batch = coord.staged
+    layout = batch.layout
     # TRON on the same staged coordinate: the estimator's coordinate cache
     # swaps the optimization config, so nothing is staged again.
     tron_est = copy.copy(est)
     tron_est.coordinate_configs = sparse_estimator(
         "cuda", "TRON", TRON_ITERATIONS).coordinate_configs
-    ell_scatter.scatter_rowterm.launches = 0  # the TRON run starts
+    torch.cuda.reset_peak_memory_stats()
+    ell_scatter.ell_rmatvec.launches = 0  # the TRON run starts
+    ell_scatter.scatter_rowterm.launches = 0
     tron_result, tron_s = timed_fit(torch, tron_est, train, val, "cuda")
-    tron_launches = ell_scatter.scatter_rowterm.launches  # ... and ends
+    tron_launches = ell_scatter.ell_rmatvec.launches  # ... and ends
+    tron_generic = ell_scatter.scatter_rowterm.launches
+    tron_peak = torch.cuda.max_memory_allocated()
     tron = check_sparse_fit(torch, tron_result, "sparse_train TRON")
     if tron_launches != tron["gradient_evaluations"] \
-            + tron["hessian_vector_products"]:
+            + tron["hessian_vector_products"] or tron_generic:
         raise AssertionError(
-            f"sparse_train TRON: ell_scatter launched {tron_launches} times "
+            f"sparse_train TRON: ell_rmatvec launched {tron_launches} times "
             f"for {tron['gradient_evaluations']} gradient evaluations and "
-            f"{tron['hessian_vector_products']} H.v products")
+            f"{tron['hessian_vector_products']} H.v products, "
+            f"scatter_rowterm {tron_generic} times")
+    old = old_route_fit(torch, ell_scatter, est, batch, train, val)
+    same = torch.equal(old["means"], result.model.models["ctr"]
+                       .coefficients.means) and old["auc"] == fit["auc"]
+    old["same_bits"] = same
+    del old["means"]
+    if not same:
+        raise AssertionError(
+            f"sparse_train: the old route's fit differs from ell_rmatvec's "
+            f"(AUC {old['auc']} against {fit['auc']})")
     col_len = layout.col_ptr[1:] - layout.col_ptr[:-1]
+    staged = {name: t.numel() * t.element_size() for name, t in (
+        ("indices", batch.indices), ("values", batch.values),
+        ("labels", batch.labels), ("weights", batch.weights),
+        ("offsets", batch.offsets))}
     emit("sparse_train", card=card, rows=train.num_rows,
          val_rows=val.num_rows, dim=SPARSE_DIM, slots=SPARSE_NNZ,
          valid_slots=layout.nnz, pieces=layout.num_pieces,
+         staged_bytes={"batch": sum(staged.values()),
+                       "layout": layout.nbytes, **staged},
          longest_column=int(col_len.max()),
          columns_over_32=int((col_len > 32).sum()),
          empty_columns=int((col_len == 0).sum()),
@@ -1111,7 +1177,9 @@ def phase_sparse_train(np, torch, card: str) -> dict:
          staging_and_layout_seconds=coord.staging_seconds,
          fit_seconds=fit_s, lbfgs=fit, launches=launches,
          max_memory_allocated=peak,
-         tron={**tron, "fit_seconds": tron_s, "launches": tron_launches})
+         tron={**tron, "fit_seconds": tron_s, "launches": tron_launches,
+               "max_memory_allocated": tron_peak},
+         old_route=old)
     return {"coord": coord, "model": result.model, "launches": launches,
             "tron_launches": tron_launches, "train": train, "val": val}
 
@@ -1206,7 +1274,146 @@ def check_ell_scatter(torch, es, indices, rv, dim, layout, label: str,
     return row
 
 
+def extra_bytes(torch, fn) -> int:
+    """Device bytes one call of ``fn`` allocates above what was allocated
+    before it, at its peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    del out
+    return extra
+
+
+def check_ell_rmatvec(torch, es, indices, values, r, dim, layout, generic,
+                      label: str, square: bool = False, timed: bool = False,
+                      exact: bool = False) -> dict:
+    """ell_rmatvec at one shape: bit for bit scatter_rowterm over the
+    materialised row terms r ⊗ values (values² under ``square``) and its
+    ``generic`` layout, the same bits on two launches, within PARITY_REL
+    of the plain version (bit for bit when ``exact``), each column within
+    COLUMN_TOL · Σ|terms| of its exact sum, and, on real-valued inputs,
+    the column check shown to reject the kernel's sums with ``r`` rounded
+    to bfloat16; with ``timed``, the times of the kernel, the old route
+    (the multiply, then scatter_rowterm), the plain version and a CSR
+    torch.mv of Xᵀ, and the bytes each route allocates a call.
+
+    Under ``square`` every term is positive, and the float32 plain
+    version's atomic sum of the Zipf head (9.5M terms at the main shape)
+    drifts from the exact sum by more than PARITY_REL; that form is held
+    against the plain version in float64 (the exact sums) instead, and
+    the float32 plain version's own gaps are reported beside it."""
+    def fused(rr=r):
+        return es.ell_rmatvec(indices, values, rr, dim, layout=layout,
+                              square=square)
+
+    def terms():
+        return r[:, None] * (values * values if square else values)
+
+    def old_route():
+        return es.scatter_rowterm(indices, terms(), dim, layout=generic)
+
+    got, again = fused(), fused()
+    want = old_route()
+    plain = es.ell_rmatvec_reference(indices, values, r, dim, square)
+    rv = terms()
+    true = exact_sums(torch, indices, rv, dim)
+    mag = exact_sums(torch, indices, rv.abs(), dim)
+    del rv
+    torch.cuda.synchronize()
+
+    def gap(want):
+        err = float((got.double() - want.double()).abs().max()) if dim \
+            else 0.0
+        scale = float(want.abs().max()) if dim else 0.0
+        return err, err / max(scale, 1e-9)
+
+    plain32_err, plain32_rel = gap(plain)
+    plain32_ratio = column_ratio(torch, plain.double(), true,
+                                 COLUMN_TOL * mag)
+    held_against = "float64 plain" if square else "float32 plain"
+    err, rel = gap(true) if square else (plain32_err, plain32_rel)
+    ratio = column_ratio(torch, got.double(), true, COLUMN_TOL * mag)
+    if not torch.equal(got, again):
+        raise AssertionError(f"ell_rmatvec {label}: two launches differ")
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"ell_rmatvec {label}: not the bits of scatter_rowterm over the "
+            f"materialised row terms (max |diff| "
+            f"{float((got - want).abs().max())})")
+    if exact and not torch.equal(got, plain):
+        raise AssertionError(f"ell_rmatvec {label}: not bit-exact on "
+                             f"integer inputs (max |err| {err})")
+    if not (rel <= PARITY_REL and ratio <= 1.0):
+        raise AssertionError(
+            f"ell_rmatvec {label}: parity_rel {rel} against the "
+            f"{held_against} version (limit {PARITY_REL}), worst column "
+            f"at {ratio} of {COLUMN_TOL} · Σ|terms|")
+    bf16_ratio = None
+    if not exact:
+        coarse = fused(r.bfloat16().float())
+        bf16_ratio = column_ratio(torch, coarse.double(), true,
+                                  COLUMN_TOL * mag)
+        del coarse
+        if not bf16_ratio > 1.0:
+            raise AssertionError(
+                f"ell_rmatvec {label}: the column check would pass sums "
+                f"with r in bfloat16 (worst column at {bf16_ratio})")
+    del want, plain, true, mag, again
+    n, k = (int(x) for x in indices.shape)
+    row = {"shape": label, "n": n, "k": k, "dim": dim, "square": square,
+           "nnz": layout.nnz, "pieces": layout.num_pieces,
+           "held_against": held_against, "max_abs_err": err,
+           "parity_rel": rel, "column_ratio": ratio,
+           "plain32_max_abs_err": plain32_err,
+           "plain32_parity_rel": plain32_rel,
+           "plain32_column_ratio": plain32_ratio,
+           "bf16_column_ratio": bf16_ratio, "generic_bits": True,
+           "bit_exact": plain32_err == 0.0}
+    if not timed:
+        return row
+    # Xᵀ as a CSR matrix over the same layout: one library call of the
+    # same function (cuSPARSE allocates inside it, so no graph capture).
+    csr = torch.sparse_csr_tensor(layout.col_ptr, layout.rows,
+                                  layout.sorted_values, size=(dim, n))
+    lib_err = float((torch.mv(csr, r) - got).abs().max())
+    # Bytes the function must move: each valid slot's id and value read
+    # once, r read once and the (dim,) sums written once (one multiply and
+    # one add a slot: bytes bound it).
+    nbytes = layout.nnz * 8 + n * 4 + dim * 4
+    row.update({
+        "ms": device_ms(torch, fused, reps=7, inner=10),
+        "call_ms": call_ms(torch, fused, reps=7, inner=10),
+        "queued_ms": queued_ms(torch, fused),
+        "old_route_ms": device_ms(torch, old_route, reps=7, inner=10),
+        "old_route_call_ms": call_ms(torch, old_route, reps=7, inner=10),
+        "plain_ms": device_ms(torch, lambda: es.ell_rmatvec_reference(
+            indices, values, r, dim, square), reps=5, inner=3),
+        "library_ms": call_ms(torch, lambda: torch.mv(csr, r), reps=7,
+                              inner=10),
+        "library_device_ms": queued_ms(torch, lambda: torch.mv(csr, r)),
+        "library_call": "torch.mv on a CSR Xᵀ (dim x n) over the layout's "
+                        "column pointer, rows and values; ms per call from "
+                        "Python, library_device_ms queued behind a spin",
+        "library_max_abs_diff": lib_err,
+        # The gathers alone, in the kernel's column order, in one call.
+        "gather_ms": device_ms(torch, lambda: r.index_select(
+            0, layout.rows), reps=7, inner=10),
+        "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": nbytes,
+        "extra_bytes": extra_bytes(torch, fused),
+        "old_route_extra_bytes": extra_bytes(torch, old_route)})
+    del csr
+    return row
+
+
 def phase_ell_scatter(np, torch, trained: dict) -> list[dict]:
+    """ell_scatter's generic route (scatter_rowterm, the hybrid cold
+    margins' and the streamed chunks' kernel) and its fused one
+    (ell_rmatvec, the ELL objective's) at the main path's shape and at
+    the fixtures below. Returns (generic rows, fused rows)."""
     from photon_ml_torch.data import sparse
     from photon_ml_torch.ops import sparse_aggregators as sagg
     from photon_ml_torch.ops.kernels import ell_scatter as es
@@ -1214,57 +1421,125 @@ def phase_ell_scatter(np, torch, trained: dict) -> list[dict]:
     coord = trained["coord"]
     batch = coord.staged
     dim = batch.num_features
-    # The main path's row terms: r ⊗ values at the fitted coefficients,
-    # exactly what the last gradient evaluation scattered.
+    # The generic route's layout (perm) of the same ids: the staged batch
+    # carries only ell_rmatvec's (rows and values).
+    generic = es.build_layout(batch.indices, dim)
+    layouts = {"ell_rmatvec": batch.layout.nbytes,
+               "scatter_rowterm": generic.nbytes}
+    # The main path's row terms at the fitted coefficients: the gradient's
+    # r = w·dl (exactly what the last gradient evaluation scattered), the
+    # H·v product's w·d2l·(x·v) along a seeded direction v, and the
+    # diagonal's w·d2l over values².
     means = trained["model"].models["ctr"].coefficients.means
     z = sagg.margins(batch, means)
     _, dl = coord.loss.loss_and_dz(z, batch.labels)
-    r = torch.where(batch.weights > 0, batch.weights * dl,
-                    torch.zeros_like(dl))
-    rv = r[:, None] * batch.values
-    rows = [check_ell_scatter(torch, es, batch.indices, rv, dim,
-                              batch.layout, "main path", True)]
+    d2 = coord.loss.d2z(z, batch.labels)
+
+    def masked(t):
+        return torch.where(batch.weights > 0, batch.weights * t,
+                           torch.zeros_like(t))
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    r = masked(dl)
+    rv = r[:, None] * batch.values
+    rows = [check_ell_scatter(torch, es, batch.indices, rv, dim, generic,
+                              "main path", True)]
     rv_int = torch.randint(-8, 9, rv.shape, generator=gen, device="cuda",
                            dtype=torch.int32).to(torch.float32)
     rows.append(check_ell_scatter(torch, es, batch.indices, rv_int, dim,
-                                  batch.layout, "main path, integer",
-                                  False, exact=True))
-    del r, rv, rv_int, z, dl
+                                  generic, "main path, integer", False,
+                                  exact=True))
+    del rv, rv_int
+    torch.cuda.empty_cache()
+    direction = torch.randn(dim, generator=gen, device="cuda")
+    xv = sagg.ell_matvec(batch.indices, batch.values, direction)
+    fused = []
+    for form, rr, square in (("gradient", r, False),
+                             ("H·v", masked(d2) * xv, False),
+                             ("diagonal", masked(d2), True)):
+        fused.append(check_ell_rmatvec(
+            torch, es, batch.indices, batch.values, rr, dim, batch.layout,
+            generic, f"main path, {form}", square=square,
+            timed=form == "gradient"))
+    del z, dl, d2, xv, r
+    # Integer r and values: every product and partial sum exact.
+    ints = torch.randint(-4, 5, batch.values.shape, generator=gen,
+                         device="cuda", dtype=torch.int32).to(torch.float32)
+    r_int = torch.randint(-3, 4, (batch.num_rows,), generator=gen,
+                          device="cuda", dtype=torch.int32).to(torch.float32)
+    int_layout = es.build_layout(batch.indices, dim, ints)
+    for square in (False, True):
+        fused.append(check_ell_rmatvec(
+            torch, es, batch.indices, ints, r_int, dim, int_layout, generic,
+            "main path, integer", square=square, exact=True))
+    try:
+        es.ell_rmatvec(batch.indices, batch.values, r_int, dim)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ell_rmatvec ran on CUDA tensors without a "
+                             "layout")
+    del ints, r_int, int_layout, generic
     torch.cuda.empty_cache()
     # The regime in which the JAX package runs its Pallas kernel.
     for small_dim in (512, 2048):
         b = sparse.synthetic_sparse(
             n=65_536, num_features=small_dim, nnz_per_row=SPARSE_NNZ,
             seed=SEED)[0].to("cuda")
+        g = es.build_layout(b.indices, small_dim)
         r = torch.randn(b.num_rows, generator=gen, device="cuda")
         rows.append(check_ell_scatter(
-            torch, es, b.indices, r[:, None] * b.values, small_dim,
-            b.layout, f"d={small_dim}", True))
+            torch, es, b.indices, r[:, None] * b.values, small_dim, g,
+            f"d={small_dim}", True))
+        fused.append(check_ell_rmatvec(
+            torch, es, b.indices, b.values, r, small_dim, b.layout, g,
+            f"d={small_dim}", timed=True))
     # Uniform ids over d = 1M (short columns, most of one or two entries)
     # with normal row terms, which bfloat16 cannot hold.
     uni = torch.randint(0, dim, (65_536, SPARSE_NNZ), generator=gen,
                         device="cuda", dtype=torch.int32)
     uni[torch.rand(uni.shape, generator=gen, device="cuda") < 0.1] = dim
+    uni_values = torch.randn(uni.shape, generator=gen, device="cuda")
+    uni_layout = es.build_layout(uni, dim)
     rows.append(check_ell_scatter(
         torch, es, uni, torch.randn(uni.shape, generator=gen, device="cuda"),
-        dim, es.build_layout(uni, dim), "uniform ids, short columns", False))
+        dim, uni_layout, "uniform ids, short columns", False))
+    fused.append(check_ell_rmatvec(
+        torch, es, uni, uni_values,
+        torch.randn(uni.shape[0], generator=gen, device="cuda"), dim,
+        es.build_layout(uni, dim, uni_values), uni_layout,
+        "uniform ids, short columns"))
     # All padding: every slot at the sentinel, every column empty.
     pad = torch.full((4096, SPARSE_NNZ), dim, dtype=torch.int32,
                      device="cuda")
+    pad_values = torch.randn(pad.shape, generator=gen, device="cuda")
     rows.append(check_ell_scatter(
         torch, es, pad, torch.randn(pad.shape, generator=gen, device="cuda"),
         dim, es.build_layout(pad, dim), "all padding", False, exact=True))
+    fused.append(check_ell_rmatvec(
+        torch, es, pad, pad_values,
+        torch.randn(pad.shape[0], generator=gen, device="cuda"), dim,
+        es.build_layout(pad, dim, pad_values), es.build_layout(pad, dim),
+        "all padding", exact=True))
     # One column in every row (the Zipf head, alone): the longest segment.
     one = torch.randint(0, dim, (1_000_000, 8), generator=gen,
                         device="cuda", dtype=torch.int32)
     one[:, 0] = 7
     one[:, 1] = dim  # and a padding slot in every row
+    one_values = torch.randn(one.shape, generator=gen, device="cuda")
+    one_layout = es.build_layout(one, dim)
     rows.append(check_ell_scatter(
         torch, es, one, torch.randn(one.shape, generator=gen, device="cuda"),
-        dim, es.build_layout(one, dim), "one column in every row", False))
+        dim, one_layout, "one column in every row", False))
+    fused.append(check_ell_rmatvec(
+        torch, es, one, one_values,
+        torch.randn(one.shape[0], generator=gen, device="cuda"), dim,
+        es.build_layout(one, dim, one_values), one_layout,
+        "one column in every row"))
     emit("kernels", kernel="ell_scatter", checks=len(rows), shapes=rows)
-    return rows
+    emit("kernels", kernel="ell_rmatvec", checks=len(fused), shapes=fused,
+         layout_bytes=layouts)
+    return rows, fused
 
 
 # -- sparse_parity ---------------------------------------------------------
@@ -1956,14 +2231,17 @@ def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
 
     # The same rows on the ELL layout, in this process.
     ell_est = sparse_estimator("cuda", hybrid=False)
-    es.scatter_rowterm.launches = 0  # the ELL run starts
+    es.ell_rmatvec.launches = 0  # the ELL run starts
+    es.scatter_rowterm.launches = 0
     ell_result, ell_fit_s = timed_fit(torch, ell_est, data, val, "cuda")
-    ell_launches = es.scatter_rowterm.launches  # ... and ends
+    ell_launches = es.ell_rmatvec.launches  # ... and ends
+    ell_generic = es.scatter_rowterm.launches
     ell = check_sparse_fit(torch, ell_result, "hybrid_train, ELL")
-    if ell_launches != ell["gradient_evaluations"]:
+    if ell_launches != ell["gradient_evaluations"] or ell_generic:
         raise AssertionError(
-            f"hybrid_train ELL: ell_scatter launched {ell_launches} times "
-            f"for {ell['gradient_evaluations']} gradient evaluations")
+            f"hybrid_train ELL: ell_rmatvec launched {ell_launches} times "
+            f"for {ell['gradient_evaluations']} gradient evaluations, "
+            f"scatter_rowterm {ell_generic} times")
     batch = ell_est.coordinates["ctr"].staged
     ell_eval_ms = call_ms(torch, lambda: sagg.value_and_gradient(
         coord.loss, w, batch), reps=5, inner=3)
@@ -1990,7 +2268,7 @@ def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
         raise AssertionError(f"hybrid_train: the hybrid and ELL objectives "
                              f"differ at the final iterate: {gap}")
     return {"coord": coord, "w_perm": w_perm, "launches": launches,
-            "rows": rows, "hot": hot}
+            "ell_launches": ell_launches, "rows": rows, "hot": hot}
 
 
 def hot_block_times(torch, hs, sf, coord, hb, w_perm) -> dict:
@@ -2352,7 +2630,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_parity(np, torch, card)
     sparse_trained = phase_sparse_train(np, torch, card)
-    ell_checks = phase_ell_scatter(np, torch, sparse_trained)
+    ell_checks, rmatvec_checks = phase_ell_scatter(np, torch,
+                                                   sparse_trained)
     sparse_launches = {"lbfgs": sparse_trained["launches"],
                        "tron": sparse_trained["tron_launches"]}
     train5, val5 = sparse_trained["train"], sparse_trained["val"]
@@ -2367,6 +2646,7 @@ def main() -> int:
     del train5, val5
     cold_checks = phase_cold_grad(np, torch, hybrid_trained)
     hybrid_launches = hybrid_trained["launches"]
+    hybrid_ell_launches = hybrid_trained["ell_launches"]
     hybrid_rows = hybrid_trained["rows"]
     hybrid_hot = hybrid_trained["hot"]
     del hybrid_trained
@@ -2413,14 +2693,15 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "call_ms": m["call_ms"], "shape": shape,
             "checks": len(re_checks)})
+    # The generic route's main paths are the streamed chunks' cold tier
+    # and the hybrid cold margins; it is timed at the ELL main shape, over
+    # the row terms that route would read there.
     main_ell = ell_checks[0]
     table.append({
         "name": "ell_scatter", "route": "cuda",
         "source": "photon_ml_torch/csrc/ell_scatter.cu",
         "replaces": "photon_ml_tpu/ops/kernels/ell_scatter.py:68",
-        "launches": sparse_launches["lbfgs"],
-        "tron_launches": sparse_launches["tron"],
-        "stream_launches": stream_launches["ell_scatter"],
+        "launches": stream_launches["ell_scatter"],
         "hybrid_launches": hybrid_launches["ell_scatter"],
         "max_abs_err": max(c["max_abs_err"] for c in ell_checks),
         "parity_rel": max(c["parity_rel"] for c in ell_checks),
@@ -2431,8 +2712,37 @@ def main() -> int:
         "library_call": "Tensor.index_add_ (ids clamped outside)",
         "call_ms": main_ell["call_ms"],
         "shape": (f"n={main_ell['n']} k={main_ell['k']} "
-                  f"dim={main_ell['dim']} (sparse_train gradient)"),
+                  f"dim={main_ell['dim']} (sparse_train gradient's row "
+                  f"terms; launches from stream_train and hybrid_train)"),
         "checks": len(ell_checks)})
+    main_fused = rmatvec_checks[0]
+    table.append({
+        "name": "ell_rmatvec", "route": "cuda",
+        "source": "photon_ml_torch/csrc/ell_scatter.cu",
+        "replaces": "photon_ml_tpu/ops/kernels/ell_scatter.py:68",
+        "launches": sparse_launches["lbfgs"],
+        "tron_launches": sparse_launches["tron"],
+        "hybrid_ell_launches": hybrid_ell_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in rmatvec_checks),
+        "parity_rel": max(c["parity_rel"] for c in rmatvec_checks),
+        "column_ratio": max(c["column_ratio"] for c in rmatvec_checks),
+        "ms": main_fused["ms"], "plain_ms": main_fused["plain_ms"],
+        "bound_ms": main_fused["bound_ms"],
+        "bound_by": main_fused["bound_by"],
+        "library_ms": main_fused["library_ms"],
+        "library_device_ms": main_fused["library_device_ms"],
+        "library_call": main_fused["library_call"],
+        "call_ms": main_fused["call_ms"],
+        "queued_ms": main_fused["queued_ms"],
+        "old_route_ms": main_fused["old_route_ms"],
+        "old_route_call_ms": main_fused["old_route_call_ms"],
+        "gather_ms": main_fused["gather_ms"],
+        "extra_bytes": main_fused["extra_bytes"],
+        "old_route_extra_bytes": main_fused["old_route_extra_bytes"],
+        "shape": (f"n={main_fused['n']} k={main_fused['k']} "
+                  f"dim={main_fused['dim']}, {main_fused['nnz']} valid "
+                  f"slots (sparse_train gradient)"),
+        "checks": len(rmatvec_checks)})
     # The stream_fused rows report the fit's own int8 chunk; the float32
     # and bfloat16 timings of the same chunk ride beside them.
     for name, line in (("hot_margins", 61), ("hot_rmatvec", 112)):

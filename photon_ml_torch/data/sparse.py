@@ -23,8 +23,9 @@ The generators stay host numpy with the reference's draws, so the port's
 data equals the reference's bit for bit; the batch wraps the arrays as
 CPU tensors without copying. :meth:`SparseBatch.to` stages a batch on a
 device, and on a CUDA device also builds the column-sorted layout that
-the ``ell_scatter`` kernel reads (``ops/kernels/ell_scatter.py``): the
-ELL pattern is fixed for a whole fit, so it is sorted once.
+the ``ell_rmatvec`` kernel reads (``ops/kernels/ell_scatter.py``: each
+valid slot's row and value in column order): the ELL pattern and its
+values are fixed for a whole fit, so they are sorted once.
 """
 
 from __future__ import annotations
@@ -44,10 +45,11 @@ Tensor = torch.Tensor
 class SparseBatch:
     """ELL sparse batch: indices/values (n, max_nnz), labels etc. (n,).
 
-    ``layout`` is the column-sorted view of ``indices`` that the
-    ``ell_scatter`` kernel reads; :meth:`to` builds it on a CUDA device.
-    ``dataclasses.replace`` of any other field keeps it, so swapping the
-    offsets of a staged batch costs nothing.
+    ``layout`` is the column-sorted view of ``indices`` and ``values``
+    that the ``ell_rmatvec`` kernel reads; :meth:`to` builds it on a CUDA
+    device. ``dataclasses.replace`` of any other field keeps it, so
+    swapping the offsets of a staged batch costs nothing; a batch with
+    other indices or values needs :meth:`to` again (without the layout).
     """
 
     indices: Tensor  # int32, padding slot == num_features
@@ -103,7 +105,8 @@ class SparseBatch:
     def to(self, device) -> "SparseBatch":
         """This batch on ``device``: int32 indices, float32 everything
         else, contiguous. On a CUDA device the column layout is built
-        once here (one stable sort of the flat ids)."""
+        once here (one stable sort of the flat ids, then each valid
+        slot's row and value in column order)."""
         device = torch.device(device)
 
         def put(a, dtype):
@@ -111,13 +114,14 @@ class SparseBatch:
                                      dtype=dtype).contiguous()
 
         indices = put(self.indices, torch.int32)
+        values = put(self.values, torch.float32)
         layout = self.layout
         if layout is None or layout.device != device:
-            layout = (build_layout(indices, self.num_features)
+            layout = (build_layout(indices, self.num_features, values)
                       if device.type == "cuda" else None)
         return SparseBatch(
             indices=indices,
-            values=put(self.values, torch.float32),
+            values=values,
             labels=put(self.labels, torch.float32),
             weights=put(self.weights, torch.float32),
             offsets=put(self.offsets, torch.float32),

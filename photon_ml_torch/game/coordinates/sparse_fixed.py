@@ -12,8 +12,8 @@ Two layouts, as in the reference:
   Hessian diagonal through ``cold_grad``;
 - ELL (``hybrid=False``): ``optim/sparse_problem.run`` where the
   reference runs its mesh twin (``parallel/sparse_problem.run``), every
-  gradient, H·v and Hessian diagonal through the ``ell_scatter`` kernel
-  on a CUDA device.
+  gradient, H·v and Hessian diagonal through the ``ell_scatter``
+  kernel's fused route ``ell_rmatvec`` on a CUDA device.
 
 Not ported yet, each raising if asked for: ``feature_sharded=True`` and
 the data-sharded hybrid layout are slice 9; down-sampling and bf16
@@ -61,7 +61,7 @@ class SparseFixedEffectCoordinate:
     ``device`` once (``cuda`` unless the caller passes ``"cpu"``): the
     hybrid layout (``hybrid=None`` or ``True``), or the ELL batch
     (``hybrid=False``), and on a card the column layout the
-    ``ell_scatter`` kernel reads. Per coordinate-descent step only the
+    ``ell_scatter`` kernels read. Per coordinate-descent step only the
     (n,) offsets and the warm start move. ``last_solve`` describes the
     latest ``train_model`` solve; ``staging_seconds`` what staging took.
 

@@ -14,9 +14,11 @@ padding (slot index == d) gathers 0; the scatter drops every id >= d.
 Zero-weight (padded) rows are masked by their weight exactly as in the
 dense aggregators. Coefficients are (d,), one problem at a time.
 
-Every scatter goes through ``ops/kernels/ell_scatter.scatter_rowterm``:
-the plain version on CPU tensors, the hand-written kernel on CUDA tensors,
-at every dimension. The reference's dimension policy (its Pallas kernel
+Every scatter goes through ``ops/kernels/ell_scatter.ell_rmatvec`` (Xᵀr
+over the ELL pattern, the row terms ``r ⊗ values`` formed inside it, so no
+(n, k) row-term tensor exists on the card): the plain version on CPU
+tensors, the hand-written kernel on CUDA tensors, at every dimension. The
+reference's dimension policy (its Pallas kernel
 only up to d = 2048, XLA's scatter above) is a cost model of a TPU
 one-hot compare whose work grows with d·nnz; the port's kernel costs
 O(nnz + d) and runs at every d. The alternative would be wrong on this
@@ -61,13 +63,12 @@ def _masked(weights: Tensor, term: Tensor) -> Tensor:
                        torch.zeros_like(term))
 
 
-def _scatter_rowterm(batch: SparseBatch, r: Tensor,
-                     values: Optional[Tensor] = None) -> Tensor:
-    """Σ_i r_i · x_i as a scatter-add of r ⊗ values into (d,)."""
-    values = batch.values if values is None else values
-    return ell_scatter.scatter_rowterm(batch.indices, r[:, None] * values,
-                                       batch.num_features,
-                                       layout=batch.layout)
+def _rmatvec(batch: SparseBatch, r: Tensor, square: bool = False) -> Tensor:
+    """Σ_i r_i · x_i (x_i² under ``square``) into (d,): the scatter-add of
+    r ⊗ values (values²), formed inside the kernel."""
+    return ell_scatter.ell_rmatvec(batch.indices, batch.values, r,
+                                   batch.num_features, layout=batch.layout,
+                                   square=square)
 
 
 def value_and_gradient(loss: PointwiseLoss, means: Tensor,
@@ -76,7 +77,7 @@ def value_and_gradient(loss: PointwiseLoss, means: Tensor,
     z = margins(batch, means)
     l, dl = loss.loss_and_dz(z, batch.labels)
     value = torch.sum(_masked(batch.weights, l), dim=-1)
-    return value, _scatter_rowterm(batch, _masked(batch.weights, dl))
+    return value, _rmatvec(batch, _masked(batch.weights, dl))
 
 
 def hessian_vector(loss: PointwiseLoss, means: Tensor, v: Tensor,
@@ -85,7 +86,7 @@ def hessian_vector(loss: PointwiseLoss, means: Tensor, v: Tensor,
     z = margins(batch, means)
     d2 = loss.d2z(z, batch.labels)
     xv = ell_matvec(batch.indices, batch.values, v)
-    return _scatter_rowterm(batch, _masked(batch.weights, d2) * xv)
+    return _rmatvec(batch, _masked(batch.weights, d2) * xv)
 
 
 def hessian_diagonal(loss: PointwiseLoss, means: Tensor,
@@ -93,8 +94,7 @@ def hessian_diagonal(loss: PointwiseLoss, means: Tensor,
     """diag(H) = Σ w·d2l·x² (SIMPLE variance mode)."""
     z = margins(batch, means)
     d2 = loss.d2z(z, batch.labels)
-    return _scatter_rowterm(batch, _masked(batch.weights, d2),
-                            values=batch.values * batch.values)
+    return _rmatvec(batch, _masked(batch.weights, d2), square=True)
 
 
 def scores(batch: SparseBatch, means: Tensor,

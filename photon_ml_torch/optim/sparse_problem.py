@@ -45,8 +45,9 @@ Tensor = torch.Tensor
 @dataclasses.dataclass
 class SolveStats:
     """What one solve cost: objective evaluations by kind. On a CUDA batch
-    each one runs ``ell_scatter`` once (ELL), or ``hot_rmatvec`` once and
-    ``cold_grad`` once per class (hybrid)."""
+    each one runs ``ell_rmatvec`` (the ``ell_scatter`` kernel's fused
+    route) once (ELL), or ``hot_rmatvec`` once and ``cold_grad`` once per
+    class (hybrid)."""
 
     gradient_evaluations: int = 0
     hessian_vector_products: int = 0
