@@ -95,11 +95,21 @@ code is non-zero:
              through GameEstimator.fit with a default
              FixedEffectDataConfiguration (L-BFGS, 60 iterations, L2 1.0).
              Staging is split into host layout, device fill and the cold
-             scatter's layout. hot_margins, hot_rmatvec, cold_grad and
-             ell_scatter launches are read around the fit alone and must
-             equal the evaluations (margins and scatter: plus the
-             descent's two scoring passes; cold_grad: one launch a pass
-             over every class).
+             scatter's layout. Launches are read around the fit alone:
+             hot_value_and_gradient (one pass over the hot block an
+             evaluation), cold_grad (one launch a pass over every class)
+             and ell_scatter (plus the descent's two scoring passes) equal
+             the evaluations; hot_margins runs only for those two scoring
+             passes, hot_rmatvec and hot_hessian_vector not at all. At the
+             fit's final iterate (and a direction from the seed) the
+             fused passes hold z, the value and x·v bit for bit the
+             two-kernel route's, every hot gradient column within 1e-5 ·
+             Σ|terms| of its float64 sum, parity_rel within 1e-3 against
+             the plain version, and the same bits on two launches; they
+             are timed against the two- and three-kernel routes they
+             replace, the plain versions and the library calls, with the
+             tile ring's depth and the pass without its transposed
+             product beside them.
              Then the same rows on the ELL layout in the same process
              (ell_rmatvec launches equal to its evaluations):
              milliseconds per evaluation of each layout and both AUCs. At
@@ -137,10 +147,12 @@ code is non-zero:
              and on the CPU: every coefficient within 5e-3 after 10
              iterations, every card evaluation of that fit replayed on the
              CPU (sparse_parity's limits), and 5 TRON iterations on the
-             card with cold_grad and hot_rmatvec launches equal to its
-             gradient evaluations and H·v products.
+             card: hot_value_and_gradient launches equal to its gradient
+             evaluations, hot_hessian_vector's to its H·v products,
+             cold_grad's to both, and hot_rmatvec none.
 
-Then it prints the kernel table ({"kernels": [...]}), nvidia-smi's
+Then it prints the kernel table ({"kernels": [...]}; the hybrid block's
+fused pass as hot_value_and_gradient and hot_hessian_vector), nvidia-smi's
 "name, power.limit" line, and as its last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -2171,6 +2183,7 @@ def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
     from photon_ml_torch.ops import sparse_aggregators as sagg
     from photon_ml_torch.ops.kernels import cold_grad as cg
     from photon_ml_torch.ops.kernels import ell_scatter as es
+    from photon_ml_torch.ops.kernels import hot_pass as hp
     from photon_ml_torch.ops.kernels import stream_fused as sf
 
     t0 = time.perf_counter()
@@ -2187,7 +2200,9 @@ def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
          seconds=time.perf_counter() - t0)
     rows = plan["rows"]
     data = train.subset(slice(0, rows))
-    counters = {"hot_margins": sf.hot_margins, "hot_rmatvec": sf.hot_rmatvec,
+    counters = {"hot_value_and_gradient": hp.hot_value_and_gradient,
+                "hot_hessian_vector": hp.hot_hessian_vector,
+                "hot_margins": sf.hot_margins, "hot_rmatvec": sf.hot_rmatvec,
                 "cold_grad": cg.cold_grad,
                 "ell_scatter": es.scatter_rowterm}
     est = sparse_estimator("cuda", hybrid=None)
@@ -2204,11 +2219,14 @@ def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
     hb = coord.staged
     classes = len(hb.cold_rowids)
     evals = fit["gradient_evaluations"]
-    # The descent scores the coordinate twice (before and after the
-    # update): two more margins passes, each one hot_margins and one
-    # ell_scatter launch. cold_grad: one launch a pass over every class.
-    want = {"hot_margins": evals + 2, "hot_rmatvec": evals,
-            "cold_grad": evals, "ell_scatter": evals + 2}
+    # Each evaluation is one hot_value_and_gradient pass over the hot
+    # block, one cold_grad launch over every class and one ell_scatter
+    # launch for the cold margins. The descent scores the coordinate twice
+    # (before and after the update): two margins passes, each one
+    # hot_margins and one ell_scatter launch.
+    want = {"hot_value_and_gradient": evals, "hot_hessian_vector": 0,
+            "hot_margins": 2, "hot_rmatvec": 0, "cold_grad": evals,
+            "ell_scatter": evals + 2}
     if not coord.hybrid or hb.num_hot != plan["num_hot"] \
             or classes != plan["cold_classes"] or launches != want:
         raise AssertionError(
@@ -2225,9 +2243,14 @@ def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
         raise AssertionError("hybrid_train: two value-and-gradient passes "
                              "at the same iterate differ")
     del g1, g2
+    v_perm = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=hb.num_features).astype(np.float32)).cuda()
+    fused = check_hot_pass(torch, hs, hp, coord.loss, hb, w_perm, v_perm)
     hybrid_eval_ms = call_ms(torch, lambda: hs.value_and_gradient(
         coord.loss, w_perm, hb), reps=5, inner=3)
-    hot = hot_block_times(torch, hs, sf, coord, hb, w_perm)
+    hybrid_hv_ms = call_ms(torch, lambda: hs.hessian_vector(
+        coord.loss, w_perm, v_perm, hb), reps=5, inner=3)
+    hot = hot_block_times(torch, hs, sf, hp, coord.loss, hb, w_perm, v_perm)
 
     # The same rows on the ELL layout, in this process.
     ell_est = sparse_estimator("cuda", hybrid=False)
@@ -2259,7 +2282,8 @@ def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
          fit_seconds=fit_s, lbfgs=fit, launches=launches,
          max_memory_allocated=peak,
          ms_per_evaluation={"hybrid": hybrid_eval_ms, "ell": ell_eval_ms},
-         hot_block=hot,
+         ms_per_hessian_vector={"hybrid": hybrid_hv_ms},
+         hot_pass_checks=fused, hot_block=hot,
          ell={**ell, "fit_seconds": ell_fit_s, "launches": ell_launches},
          auc={"hybrid": fit["auc"], "ell": ell["auc"]},
          auc_diff=abs(fit["auc"] - ell["auc"]), objective_gap=gap)
@@ -2268,28 +2292,149 @@ def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
         raise AssertionError(f"hybrid_train: the hybrid and ELL objectives "
                              f"differ at the final iterate: {gap}")
     return {"coord": coord, "w_perm": w_perm, "launches": launches,
-            "ell_launches": ell_launches, "rows": rows, "hot": hot}
+            "ell_launches": ell_launches, "rows": rows, "hot": hot,
+            "hot_pass_checks": fused}
 
 
-def hot_block_times(torch, hs, sf, coord, hb, w_perm) -> dict:
-    """hot_margins and hot_rmatvec on the hybrid fit's float32 hot block
-    at its final iterate, against the one library call that computes each
-    (torch.addmv, torch.mv on X.t()), with their bytes bound. The block
-    is too large for a float64 check here; the objective check of the
-    phase holds whole evaluations, and the stream kernels phase holds
-    both kernels column by column."""
-    X = hb.X_hot
+def hot_pass_inputs(hs, hb, w_perm, v_perm) -> dict:
+    """The hybrid block's hot_pass arguments at one iterate and direction
+    (the cold margins computed as the objective computes them)."""
+    return {"X": hb.X_hot, "w_hot": hs._hot_weights(hb, w_perm),
+            "v_hot": hs._hot_weights(hb, v_perm),
+            "cold_z": hs._cold_margins(hb, w_perm),
+            "cold_zv": hs._cold_margins(hb, v_perm), "offsets": hb.offsets,
+            "labels": hb.labels, "weights": hb.weights}
+
+
+def exact_rmatvec(torch, X, r, block_rows: int = 262_144):
+    """float64 rᵀX and |r|ᵀ|X|, in blocks of rows (the float32 block is
+    too large for a float64 copy)."""
+    exact = torch.zeros(X.shape[1], dtype=torch.float64, device=X.device)
+    mag = torch.zeros_like(exact)
+    for i0 in range(0, X.shape[0], block_rows):
+        Xd = X[i0:i0 + block_rows].double()
+        rd = r[i0:i0 + block_rows].double()
+        exact += rd @ Xd
+        mag += rd.abs() @ Xd.abs()
+        del Xd
+    return exact, mag
+
+
+def check_hot_pass(torch, hs, hp, loss, hb, w_perm, v_perm) -> dict:
+    """hot_pass on the hybrid block at one iterate and direction: z (and
+    for H·v, xv) bit for bit the two-kernel route's (hybrid_sparse.margins
+    and margins(v) − offsets), the hybrid value bit for bit the value
+    from that route's margins, every g_hot column within COLUMN_TOL ·
+    Σ|terms| of its float64 sum, parity_rel within PARITY_REL against
+    the plain version, and the same bits on two launches."""
+    a = hot_pass_inputs(hs, hb, w_perm, v_perm)
+    vg = (a["X"], a["w_hot"], a["offsets"], a["cold_z"], a["labels"],
+          a["weights"], loss)
+    hv = (a["X"], a["w_hot"], a["v_hot"], a["offsets"], a["cold_z"],
+          a["cold_zv"], a["labels"], a["weights"], loss)
+    z_route = hs.margins(hb, w_perm)
+    xv_route = hs.margins(hb, v_perm) - hb.offsets
+    l, _ = loss.loss_and_dz(z_route, hb.labels)
+    value_route = torch.sum(hs._masked(hb.weights, l))
+    value, _ = hs.value_and_gradient(loss, w_perm, hb)
+    r_g = residual(torch, loss, z_route, hb)
+    r_h = hs._masked(hb.weights, loss.d2z(z_route, hb.labels)) * xv_route
+    z1, g1 = hp.hot_value_and_gradient(*vg)
+    z2, g2 = hp.hot_value_and_gradient(*vg)
+    hz1, xv1, h1 = hp.hot_hessian_vector(*hv)
+    hz2, xv2, h2 = hp.hot_hessian_vector(*hv)
+    torch.cuda.synchronize()
+    bits = {"z": torch.equal(z1, z_route) and torch.equal(z2, z_route),
+            "value": torch.equal(value, value_route),
+            "hessian_vector z": torch.equal(hz1, z_route)
+            and torch.equal(hz2, z_route),
+            "xv": torch.equal(xv1, xv_route) and torch.equal(xv2, xv_route),
+            "two launches": torch.equal(g1, g2) and torch.equal(h1, h2)}
+    del z1, z2, hz1, hz2, xv1, xv2, g2, h2, z_route, xv_route
+    out = {"bits": bits}
+    for name, got, r, plain in (
+            ("hot_value_and_gradient", g1, r_g,
+             lambda: hp.hot_value_and_gradient_reference(*vg)[1]),
+            ("hot_hessian_vector", h1, r_h,
+             lambda: hp.hot_hessian_vector_reference(*hv)[2])):
+        exact, mag = exact_rmatvec(torch, a["X"], r)
+        want = plain()
+        err = float((got - want).abs().max())
+        out[name] = {
+            "column_ratio": column_ratio(torch, got.double(), exact,
+                                         COLUMN_TOL * mag),
+            "max_abs_err": err,
+            "parity_rel": err / max(float(want.abs().max()), 1e-9)}
+        del exact, mag, want
+    if not all(bits.values()) or any(
+            out[k]["column_ratio"] > 1.0 or out[k]["parity_rel"] > PARITY_REL
+            for k in ("hot_value_and_gradient", "hot_hessian_vector")):
+        raise AssertionError(f"hybrid_train hot_pass: {out}")
+    return out
+
+
+def hot_pass_variant(hp, define: str):
+    """csrc/hot_pass.cu built with ``define`` into the package's build
+    directory, its C entry typed as the package's."""
+    import ctypes
+
+    from photon_ml_torch.ops.kernels import _build
+
+    hp.load()
+    lib = os.path.join(_build.BUILD_DIR, f"libhot_pass-{define}.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-o",
+                    lib, os.path.join(_build.SRC_DIR, "hot_pass.cu")],
+                   check=True, capture_output=True, text=True, timeout=300)
+    fn = ctypes.CDLL(lib).hot_pass_f32
+    fn.argtypes, fn.restype = hp._launcher.argtypes, hp._launcher.restype
+    return fn
+
+
+def raw_hot_pass(torch, hp, fn, a, loss, rows: int, stages: int):
+    """One value-and-gradient launch through the C entry ``fn`` with the
+    ring geometry given (the package picks it with ring_shape)."""
+    X = a["X"]
     n, h = (int(x) for x in X.shape)
-    w_hot = hs._hot_weights(hb, w_perm)
-    r = residual(torch, coord.loss, hs.margins(hb, w_perm), hb)
+    z = torch.empty(n, dtype=torch.float32, device=X.device)
+    groups = -(-n // hp.ROW_GROUP)
+    partial = torch.empty((groups, h), dtype=torch.float32, device=X.device)
+    g = torch.empty(h, dtype=torch.float32, device=X.device)
+    cold = a["cold_z"]
+    err = fn(X.data_ptr(), a["w_hot"].data_ptr(), None,
+             a["offsets"].data_ptr(), None if cold is None else
+             cold.data_ptr(), None, a["labels"].data_ptr(),
+             a["weights"].data_ptr(), z.data_ptr(), None,
+             partial.data_ptr(), g.data_ptr(), n, h, rows, stages,
+             groups, hp.LOSSES.index(loss.name),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hot_pass ({rows} rows, {stages} stages): CUDA "
+                           f"error {err}")
+    return z, g
+
+
+def hot_block_times(torch, hs, sf, hp, loss, hb, w_perm, v_perm) -> dict:
+    """The hybrid fit's float32 hot block at its final iterate: the fused
+    value-and-gradient pass and the fused H·v against the two- and
+    three-kernel routes they replace, their plain versions and the
+    library calls (torch.addmv, torch.mv on X.t()), each beside its
+    bound; hot_margins and hot_rmatvec alone against theirs; and, for
+    what holds the pass back, the tile ring's depth against its time and
+    the pass with its transposed product left out (a build of its own)."""
+    a = hot_pass_inputs(hs, hb, w_perm, v_perm)
+    X, off, w_hot, v_hot = a["X"], a["offsets"], a["w_hot"], a["v_hot"]
+    cz, czv = a["cold_z"], a["cold_zv"]
+    n, h = (int(x) for x in X.shape)
+    x_bytes = n * h * 4
+    r = residual(torch, loss, hs.margins(hb, w_perm), hb)
     out = {}
     for name, kernel, library, vectors in (
-            ("hot_margins", lambda: sf.hot_margins(X, w_hot, hb.offsets),
-             lambda: torch.addmv(hb.offsets, X, w_hot), h + 2 * n),
+            ("hot_margins", lambda: sf.hot_margins(X, w_hot, off),
+             lambda: torch.addmv(off, X, w_hot), h + 2 * n),
             ("hot_rmatvec", lambda: sf.hot_rmatvec(X, r),
              lambda: torch.mv(X.t(), r), n + h)):
         got, want = kernel(), library()
-        nbytes = n * h * 4 + vectors * 4
+        nbytes = x_bytes + vectors * 4
         out[name] = {
             "n": n, "H": h, "parity_rel": float((got - want).abs().max())
             / max(float(want.abs().max()), 1e-9),
@@ -2304,6 +2449,78 @@ def hot_block_times(torch, hs, sf, coord, hb, w_perm) -> dict:
             raise AssertionError(f"hybrid_train {name}: parity_rel "
                                  f"{out[name]['parity_rel']} against "
                                  f"{out[name]['library_call']}")
+
+    def gradient_route(margins_fn, rmatvec_fn):
+        z = hs._plus(margins_fn(w_hot), cz)
+        return rmatvec_fn(residual(torch, loss, z, hb))
+
+    def hv_route(margins_fn, rmatvec_fn):
+        z = hs._plus(margins_fn(w_hot), cz)
+        xv = hs._plus(margins_fn(v_hot), czv) - off
+        return rmatvec_fn(hs._masked(hb.weights, loss.d2z(z, hb.labels))
+                          * xv)
+
+    kernels = (lambda u: sf.hot_margins(X, u, off),
+               lambda t: sf.hot_rmatvec(X, t))
+    library = (lambda u: torch.addmv(off, X, u), lambda t: torch.mv(X.t(), t))
+    vg = (X, w_hot, off, cz, a["labels"], a["weights"], loss)
+    hv = (X, w_hot, v_hot, off, cz, czv, a["labels"], a["weights"], loss)
+    # Bytes: X once and each (n,) and (H,) vector once (vg reads offsets,
+    # cold_z, labels, weights and w and writes z and g; H·v also reads
+    # cold_zv and v and writes xv); 4 n H (6 n H) float32 operations.
+    for name, fused, plain, old, lib, vectors, ops in (
+            ("hot_value_and_gradient",
+             lambda: hp.hot_value_and_gradient(*vg),
+             lambda: hp.hot_value_and_gradient_reference(*vg),
+             lambda: gradient_route(*kernels),
+             lambda: gradient_route(*library), 5 * n + 2 * h, 4 * n * h),
+            ("hot_hessian_vector", lambda: hp.hot_hessian_vector(*hv),
+             lambda: hp.hot_hessian_vector_reference(*hv),
+             lambda: hv_route(*kernels), lambda: hv_route(*library),
+             7 * n + 3 * h, 6 * n * h)):
+        nbytes = x_bytes + vectors * 4
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_F32_FLOP_PER_S * 1e3
+        row = {"n": n, "H": h, "bytes": nbytes,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        # In turns: old route, fused, fused, old route.
+        old_ms = [device_ms(torch, old, reps=5, inner=3)]
+        fused_ms = [device_ms(torch, fused, reps=5, inner=3)
+                    for _ in range(2)]
+        old_ms.append(device_ms(torch, old, reps=5, inner=3))
+        row.update({
+            "ms": min(fused_ms), "ms_runs": fused_ms,
+            "call_ms": call_ms(torch, fused, reps=5, inner=3),
+            "old_route_ms": min(old_ms), "old_route_runs": old_ms,
+            "old_route": ("hot_margins, the loss in torch, hot_rmatvec"
+                          if name == "hot_value_and_gradient" else
+                          "hot_margins twice, the loss in torch, "
+                          "hot_rmatvec"),
+            "plain_ms": device_ms(torch, plain, reps=5, inner=3),
+            "library_ms": device_ms(torch, lib, reps=5, inner=3),
+            "library_call": ("torch.addmv + torch.mv on X.t()"
+                             if name == "hot_value_and_gradient" else
+                             "torch.addmv twice + torch.mv on X.t()")})
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        out[name] = row
+
+    # What holds the pass back: the ring's depth, and the pass without
+    # its transposed product (phase (c)), at this shape.
+    hp.load()
+    ring = {}
+    for rows, stages in ((8, 2), (8, 3), (4, 2), (4, 4), (4, 6), (2, 8)):
+        if hp.shared_bytes(h, rows, stages, False) <= hp.MAX_SHARED:
+            ring[f"{rows}x{stages}"] = device_ms(
+                torch, lambda: raw_hot_pass(torch, hp, hp._launcher, a, loss,
+                                            rows, stages), reps=5, inner=3)
+    no_transpose = hot_pass_variant(hp, "HOT_PASS_TIMING_NO_TRANSPOSE")
+    rows, stages = hp.ring_shape(h, False)
+    out["hot_value_and_gradient"].update({
+        "ring": {"rows": rows, "stages": stages}, "ring_ms": ring,
+        "no_transpose_ms": device_ms(
+            torch, lambda: raw_hot_pass(torch, hp, no_transpose, a, loss,
+                                        rows, stages), reps=5, inner=3)})
     return out
 
 
@@ -2507,7 +2724,14 @@ def phase_cold_grad(np, torch, trained: dict) -> list[dict]:
 
 # -- hybrid_parity ---------------------------------------------------------
 
-def hybrid_replay(torch, hs, coord, calls) -> dict:
+def rowterm_gradient(hs, sf, hb, r):
+    """Σ_i r_i·x_i in permuted space: hot_rmatvec and every cold class."""
+    g_hot = sf.hot_rmatvec(hb.X_hot, r) if hb.num_hot else None
+    return hs._assemble_grad(hb, g_hot,
+                             hs._cold_grad(hb, r, hb.cold_flat_vals))
+
+
+def hybrid_replay(torch, hs, sf, coord, calls) -> dict:
     """Each recorded card evaluation of the hybrid fit computed again on
     the CPU coordinate's staged layout from the same permuted iterate:
     the value's relative gap and the worst gradient column against
@@ -2522,8 +2746,8 @@ def hybrid_replay(torch, hs, coord, calls) -> dict:
         v_cpu, g_cpu = hs.value_and_gradient(loss, w, hb)
         r = residual(torch, loss, hs.margins(hb, w), hb)
         w_pos = torch.where(hb.weights > 0, hb.weights, torch.zeros_like(r))
-        allowed = hs._rowterm_gradient(
-            magnitude, COLUMN_TOL * r.abs() + REPLAY_ROW_ABS * w_pos)
+        allowed = rowterm_gradient(
+            hs, sf, magnitude, COLUMN_TOL * r.abs() + REPLAY_ROW_ABS * w_pos)
         value_gap = max(value_gap, abs(float(value - v_cpu))
                         / abs(float(v_cpu)))
         column = max(column, column_ratio(torch, grad, g_cpu, allowed))
@@ -2531,7 +2755,7 @@ def hybrid_replay(torch, hs, coord, calls) -> dict:
             "gradient_column_ratio": column}
 
 
-def phase_hybrid_parity(np, torch, card: str, parity: dict) -> None:
+def phase_hybrid_parity(np, torch, card: str, parity: dict) -> dict:
     """sparse_parity's 300,000 rows in the hybrid layout, on the card and
     on the CPU: every coefficient within PARITY_TOL after
     PARITY_EARLY_ITERATIONS iterations, every card evaluation of that fit
@@ -2539,6 +2763,7 @@ def phase_hybrid_parity(np, torch, card: str, parity: dict) -> None:
     card with launches equal to its evaluations and H·v products."""
     from photon_ml_torch.ops import hybrid_sparse as hs
     from photon_ml_torch.ops.kernels import cold_grad as cg
+    from photon_ml_torch.ops.kernels import hot_pass as hp
     from photon_ml_torch.ops.kernels import stream_fused as sf
 
     train, val = parity["train"], parity["val"]
@@ -2556,16 +2781,22 @@ def phase_hybrid_parity(np, torch, card: str, parity: dict) -> None:
     with log:
         cuda = fit("cuda")
     cpu = fit("cpu")
-    replay = hybrid_replay(torch, hs, cpu[4], log.calls)
+    replay = hybrid_replay(torch, hs, sf, cpu[4], log.calls)
     diff = float((cuda[0] - cpu[0]).abs().max())
     classes = len(cuda[4].staged.cold_rowids)
-    cg.cold_grad.launches = 0  # the TRON run starts
-    sf.hot_rmatvec.launches = 0
+    counters = {"cold_grad": cg.cold_grad,
+                "hot_value_and_gradient": hp.hot_value_and_gradient,
+                "hot_hessian_vector": hp.hot_hessian_vector,
+                "hot_rmatvec": sf.hot_rmatvec}
+    for fn in counters.values():  # the TRON run starts
+        fn.launches = 0
     tron = fit("cuda", "TRON", TRON_PARITY_ITERATIONS)
-    tron_launches = {"cold_grad": cg.cold_grad.launches,  # ... and ends
-                     "hot_rmatvec": sf.hot_rmatvec.launches}
-    passes = tron[2]["gradient_evaluations"] \
-        + tron[2]["hessian_vector_products"]
+    tron_launches = {k: fn.launches  # ... and ends
+                     for k, fn in counters.items()}
+    evals = tron[2]["gradient_evaluations"]
+    products = tron[2]["hessian_vector_products"]
+    want = {"cold_grad": evals + products, "hot_value_and_gradient": evals,
+            "hot_hessian_vector": products, "hot_rmatvec": 0}
     emit("hybrid_parity", card=card, rows=train.num_rows,
          num_hot=cuda[4].staged.num_hot, cold_classes=classes,
          iterations=PARITY_EARLY_ITERATIONS, coefficient_max_diff=diff,
@@ -2579,17 +2810,17 @@ def phase_hybrid_parity(np, torch, card: str, parity: dict) -> None:
             f"hybrid_parity: recorded {replay['evaluations']} card "
             f"evaluations, the solver reports "
             f"{cuda[2]['gradient_evaluations']}")
-    if tron_launches != {"cold_grad": passes, "hot_rmatvec": passes} \
-            or tron[2]["hessian_vector_products"] == 0 \
+    if tron_launches != want or products == 0 \
             or not bool(torch.isfinite(tron[0]).all()):
-        raise AssertionError(f"hybrid_parity TRON: launches {tron_launches} "
-                             f"for {passes} passes (solver: {tron[2]})")
+        raise AssertionError(f"hybrid_parity TRON: launches {tron_launches},"
+                             f" expected {want} (solver: {tron[2]})")
     if not (diff <= PARITY_TOL
             and replay["value_rel_gap"] <= REPLAY_VALUE_RTOL
             and replay["gradient_column_ratio"] <= 1.0):
         raise AssertionError(
             f"hybrid_parity: coefficients after {PARITY_EARLY_ITERATIONS} "
             f"iterations {diff} apart (limit {PARITY_TOL}); replay {replay}")
+    return tron_launches
 
 
 def main() -> int:
@@ -2649,11 +2880,12 @@ def main() -> int:
     hybrid_ell_launches = hybrid_trained["ell_launches"]
     hybrid_rows = hybrid_trained["rows"]
     hybrid_hot = hybrid_trained["hot"]
+    hot_pass_checks = hybrid_trained["hot_pass_checks"]
     del hybrid_trained
     torch.cuda.empty_cache()
     parity = phase_sparse_parity(np, torch, card)
     phase_stream_parity(np, torch, card, parity)
-    phase_hybrid_parity(np, torch, card, parity)
+    tron_hybrid_launches = phase_hybrid_parity(np, torch, card, parity)
 
     main_shape = next(c for c in checks if c["n"] == 64
                       and c["cache"] == "float32")
@@ -2770,6 +3002,34 @@ def main() -> int:
                 "bound_ms")} for c in mine if c["shape"] == "main"},
             "hybrid_block": hybrid_hot[name],
             "checks": len(mine)})
+    # The hybrid block's fused pass (rows 5-6 of the table, redesigned):
+    # timed and checked at hybrid_train's block; the H·v pass launches on
+    # hybrid_parity's TRON fit.
+    for name, launches_on in (
+            ("hot_value_and_gradient", hybrid_launches),
+            ("hot_hessian_vector", tron_hybrid_launches)):
+        t = hybrid_hot[name]
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "photon_ml_torch/csrc/hot_pass.cu",
+            "replaces": "photon_ml_tpu/ops/kernels/stream_fused.py:61",
+            "also_replaces": "photon_ml_tpu/ops/kernels/stream_fused.py:112",
+            "launches": launches_on[name],
+            "launches_on": ("hybrid_train's L-BFGS fit"
+                            if name == "hot_value_and_gradient" else
+                            "hybrid_parity's TRON fit"),
+            "max_abs_err": hot_pass_checks[name]["max_abs_err"],
+            "parity_rel": hot_pass_checks[name]["parity_rel"],
+            "column_ratio": hot_pass_checks[name]["column_ratio"],
+            "bits": hot_pass_checks["bits"],
+            **{k: t[k] for k in (
+                "ms", "ms_runs", "call_ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_share", "library_ms", "library_call",
+                "old_route_ms", "old_route_runs", "old_route")},
+            **{k: t[k] for k in ("ring", "ring_ms", "no_transpose_ms")
+               if k in t},
+            "shape": (f"n={t['n']} H={t['H']} float32 (hybrid_train's hot "
+                      f"block, {hybrid_rows} rows)")})
     main_cold = cold_checks[0]
     table.append({
         "name": "cold_grad", "route": "cuda",

@@ -24,11 +24,15 @@ target device.
 Where the reference leaves the work to XLA, the port runs its kernels on
 a card, and their plain versions on CPU tensors:
 
-- the hot block through ``stream_fused.hot_margins`` (``base`` = the
-  offsets) and ``stream_fused.hot_rmatvec``, float32. The block is stored
-  with its columns padded by zero columns to a multiple of ``HOT_ALIGN``
-  (and ``w`` with zeros), so every row starts on 16 bytes and the kernels
-  take their vector loads;
+- the hot block, float32, read once an evaluation: value and gradient
+  through ``hot_pass.hot_value_and_gradient`` (the margins, the residual
+  and the transposed product in one pass), H·v through
+  ``hot_pass.hot_hessian_vector``, and the margins alone (the descent's
+  scoring) through ``stream_fused.hot_margins`` (``base`` = the offsets).
+  The cold margins are computed first and enter the pass. The block is
+  stored with its columns padded by zero columns to a multiple of
+  ``HOT_ALIGN`` (and ``w`` with zeros), so every row starts on 16 bytes
+  and the kernels take their vector loads and bulk copies;
 - the cold margins' scatter ``zeros(n+1).at[rowids].add(products)``
   through ``ell_scatter`` over a column layout of the flat cold row ids
   with dim = n, built once per staged batch (padding id n ≥ dim adds
@@ -40,9 +44,10 @@ a card, and their plain versions on CPU tensors:
   pass, over the flat row ids and values, written straight into one
   (num_cold_present,) tensor.
 
-The Hessian diagonal's hot term ``r @ X_hot²`` is summed over row blocks
-of at most ``DIAG_BLOCK_ROWS`` rows in block order, so no (n, k) squared
-temporary exists.
+The Hessian diagonal's hot term ``r @ X_hot²`` is summed by
+``stream_fused.hot_rmatvec`` over row blocks of at most
+``DIAG_BLOCK_ROWS`` rows in block order, so no (n, k) squared temporary
+exists.
 
 Not ported: ``HybridShards``, ``build_hybrid_shards`` and ``local_shard``
 (the data-sharded composition; slice 9, reached only through a mesh,
@@ -60,7 +65,8 @@ import numpy as np
 import torch
 
 from photon_ml_torch.data.sparse import SparseBatch
-from photon_ml_torch.ops.kernels import cold_grad, ell_scatter, stream_fused
+from photon_ml_torch.ops.kernels import (cold_grad, ell_scatter, hot_pass,
+                                         stream_fused)
 from photon_ml_torch.ops.kernels.ell_scatter import ColumnLayout
 from photon_ml_torch.ops.losses import PointwiseLoss
 
@@ -323,20 +329,30 @@ def _cold_products(hb: HybridSparseBatch, w_perm: Tensor,
     return torch.cat(parts)
 
 
+def _cold_margins(hb: HybridSparseBatch,
+                  w_perm: Tensor) -> Optional[Tensor]:
+    """(n,) cold part of wᵀx: contiguous-slice broadcast products, then
+    one scatter by row; None without cold classes."""
+    if not hb.cold_rowids:
+        return None
+    prods = _cold_products(hb, w_perm, hb.cold_vals)
+    return ell_scatter.scatter_rowterm(
+        hb.cold_flat_rowids.view(-1, 1), prods.view(-1, 1), hb.num_rows,
+        layout=hb.cold_layout)
+
+
+def _plus(z: Tensor, cold: Optional[Tensor]) -> Tensor:
+    return z if cold is None else z + cold
+
+
 def margins(hb: HybridSparseBatch, w_perm: Tensor) -> Tensor:
     """(n,) wᵀx + offset. Hot: one matrix-vector product onto the
-    offsets. Cold: contiguous-slice broadcast products, then one scatter
-    by row."""
+    offsets. Cold: :func:`_cold_margins`, added last."""
     z = hb.offsets
     if hb.num_hot:
         z = stream_fused.hot_margins(hb.X_hot, _hot_weights(hb, w_perm),
                                      hb.offsets)
-    if hb.cold_rowids:
-        prods = _cold_products(hb, w_perm, hb.cold_vals)
-        z = z + ell_scatter.scatter_rowterm(
-            hb.cold_flat_rowids.view(-1, 1), prods.view(-1, 1),
-            hb.num_rows, layout=hb.cold_layout)
-    return z
+    return _plus(z, _cold_margins(hb, w_perm))
 
 
 def _masked(weights: Tensor, term: Tensor) -> Tensor:
@@ -375,31 +391,42 @@ def _assemble_grad(hb: HybridSparseBatch, g_hot: Optional[Tensor],
     return torch.cat([dense, dense.new_zeros(d - dense.shape[0])])
 
 
-def _rowterm_gradient(hb: HybridSparseBatch, r: Tensor) -> Tensor:
-    """Σ_i r_i·x_i in PERMUTED space: hot transposed product + cold class
-    sums."""
-    g_hot = stream_fused.hot_rmatvec(hb.X_hot, r) if hb.num_hot else None
-    return _assemble_grad(hb, g_hot, _cold_grad(hb, r, hb.cold_flat_vals))
-
-
 def value_and_gradient(loss: PointwiseLoss, w_perm: Tensor,
                        hb: HybridSparseBatch) -> tuple[Tensor, Tensor]:
-    """(Σ w·l, Σ w·dl·x) in permuted space — the fused hot/cold pass."""
-    z = margins(hb, w_perm)
+    """(Σ w·l, Σ w·dl·x) in permuted space — the fused hot/cold pass: the
+    cold margins, then one pass over the hot block for z and its
+    gradient, then the value and the cold gradient from z."""
+    cold_z = _cold_margins(hb, w_perm)
+    g_hot = None
+    if hb.num_hot:
+        z, g_hot = hot_pass.hot_value_and_gradient(
+            hb.X_hot, _hot_weights(hb, w_perm), hb.offsets, cold_z,
+            hb.labels, hb.weights, loss)
+    else:
+        z = _plus(hb.offsets, cold_z)
     l, dl = loss.loss_and_dz(z, hb.labels)
     value = torch.sum(_masked(hb.weights, l), dim=-1)
     r = _masked(hb.weights, dl)
-    return value, _rowterm_gradient(hb, r)
+    return value, _assemble_grad(hb, g_hot,
+                                 _cold_grad(hb, r, hb.cold_flat_vals))
 
 
 def hessian_vector(loss: PointwiseLoss, w_perm: Tensor, v_perm: Tensor,
                    hb: HybridSparseBatch) -> Tensor:
-    """Σ w·d2l·(x·v)·x in permuted space (TRON's H·v)."""
-    z = margins(hb, w_perm)
-    xv = margins(hb, v_perm) - hb.offsets
+    """Σ w·d2l·(x·v)·x in permuted space (TRON's H·v): one pass over the
+    hot block for z, x·v and the hot part."""
+    cold_z, cold_zv = _cold_margins(hb, w_perm), _cold_margins(hb, v_perm)
+    g_hot = None
+    if hb.num_hot:
+        z, xv, g_hot = hot_pass.hot_hessian_vector(
+            hb.X_hot, _hot_weights(hb, w_perm), _hot_weights(hb, v_perm),
+            hb.offsets, cold_z, cold_zv, hb.labels, hb.weights, loss)
+    else:
+        z = _plus(hb.offsets, cold_z)
+        xv = _plus(hb.offsets, cold_zv) - hb.offsets
     d2 = loss.d2z(z, hb.labels)
     r = _masked(hb.weights, d2) * xv
-    return _rowterm_gradient(hb, r)
+    return _assemble_grad(hb, g_hot, _cold_grad(hb, r, hb.cold_flat_vals))
 
 
 def hessian_diagonal(loss: PointwiseLoss, w_perm: Tensor,
