@@ -14,7 +14,8 @@ code is non-zero:
              the card, at the shapes the serving path gives it and at
              the kernel-sweep shape, and times both with CUDA events: on
              the card alone (CUDA-graph replay, "ms") and per call from
-             Python ("call_ms").
+             Python ("call_ms"). Beside them, the card's launch floor: one
+             one-element Tensor.add_ in the same replay ("launch_floor_us").
 4. serve   — the serving path: a config-4 (MovieLens-20M width) GAME
              model from a seed, written with save_game_model and served
              through cli.serve.create_server on port 0, answering
@@ -150,6 +151,33 @@ code is non-zero:
              card: hot_value_and_gradient launches equal to its gradient
              evaluations, hot_hessian_vector's to its H·v products,
              cold_grad's to both, and hot_rmatvec none.
+17. glm_train — the GLM driver path, BASELINE configs 1–3, at the public
+             datasets' shapes from seed 2026 (the datasets are not
+             fetched). Config 1, logistic L-BFGS with L2 on a1a_like at
+             a1a's shape (1,605 training rows, a1a.t's 30,956 validation
+             rows, 123 binary features, ±1 labels), through the CLI
+             (cli.train_glm) on LIBSVM files that write_libsvm writes, with
+             a 3-point L2 grid, which must take the run_grid path. Config
+             2, linear TRON with L2, and config 3, Poisson OWL-QN with L1
+             and an offset column, at YearPredictionMSD's shape (90
+             features, 463,715 training and 51,630 validation rows),
+             through optim.problem.run; and each through the CLI (no
+             offset) on LIBSVM files of the 51,630-row split. Every fit
+             runs on the card and on the CPU (the CLI's MSD runs on the
+             card only): the largest coefficient gap within 5e-3, finite
+             metrics, AUC above 0.5, RMSE below the constant predictor's,
+             and a saved model that load_glm reads back bit for bit. Fit
+             seconds (synchronised), iterations, the solver's host syncs,
+             the card's busy share under torch.profiler, peak memory, and
+             the time split of a fit (parse, stage, solve, evaluate). One
+             3-lane grid evaluation at MSD's shape must not copy X.
+18. glm_gradient_step — BASELINE metric 1 at bench.py's
+             bench_gradient_step shape (n = 2^19, d = 256, float32,
+             logistic, X and y from np.random.default_rng(0)):
+             ops.aggregators.value_and_gradient on the chain
+             w ← w − 1e-9·g, timed with CUDA events as the slope between
+             20 and 220 steps (minimum of 5 each); samples/s and the share
+             of the two-read bound (X read twice at 3.35 TB/s).
 
 Then it prints the kernel table ({"kernels": [...]}; the hybrid block's
 fused pass as hot_value_and_gradient and hot_hessian_vector), nvidia-smi's
@@ -161,6 +189,7 @@ beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -268,6 +297,37 @@ HYBRID_ROWS = 4_750_000
 HYBRID_ROWS_CUT = 2_000_000
 # hybrid_parity's TRON run on the card.
 TRON_PARITY_ITERATIONS = 5
+
+# BASELINE configs 1-3 at the public datasets' shapes (not fetched):
+# a1a (123 binary features, 1,605 training rows and a1a.t's 30,956
+# validation rows) and YearPredictionMSD (90 features, 463,715 training and
+# 51,630 validation rows). The CLI's MSD runs read LIBSVM files of the
+# 51,630-row split, 80% to train on.
+A1A_TRAIN = 1_605
+A1A_VAL = 30_956
+A1A_DIM = 123
+A1A_GRID = "0.1,1,10"
+MSD_TRAIN = 463_715
+MSD_VAL = 51_630
+MSD_DIM = 90
+GLM_MAX_ITERATIONS = 100
+GLM_TOLERANCE = 1e-7
+MSD_L2 = 1.0
+# Config 3's L1 weights sit near twice the noise features' gradient at
+# zero (√(n·E[y]) ≈ 1,000 at 463,715 rows, ≈ 300 at the CLI's 41,304), so
+# OWL-QN zeroes most of the 80 features the planted model leaves out.
+MSD_L1 = 2000.0
+MSD_CLI_L1 = 600.0
+# A grid evaluation may allocate its (L, n) vectors, never a copy of X.
+GRID_LANES = 3
+GRID_PROFILED = 20
+# bench.py's bench_gradient_step: n = 2^19, d = 256, float32 logistic; the
+# slope between 20 and 220 chained steps, the minimum of 5 runs of each.
+STEP_ROWS = 1 << 19
+STEP_DIM = 256
+STEP_SHORT = 20
+STEP_LONG = 220
+STEP_RUNS = 5
 
 
 def emit(phase: str, **fields) -> None:
@@ -453,6 +513,15 @@ def phase_kernels(torch, np) -> list[dict]:
     return rows
 
 
+def launch_floor_us(torch) -> float:
+    """The card's launch floor: one launch of a one-element
+    Tensor.add_, in device_ms's CUDA-graph replay, in microseconds."""
+    one = torch.zeros(1, device="cuda")
+    floor = device_ms(torch, lambda: one.add_(1.0)) * 1e3
+    emit("kernels", kernel="launch_floor", launch_floor_us=floor)
+    return floor
+
+
 # -- serve -----------------------------------------------------------------
 
 def make_model(np, torch, rng):
@@ -558,7 +627,7 @@ def direct_pass(np, torch, svc, traffic, want, tol, label) -> dict:
         for chunk in chunks:
             svc._score_chunk(chunk)
         wall = time.perf_counter() - t0
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    busy_us = sum(e.self_device_time_total for e in device_events(prof))
     return {"direct_flushes": len(chunks),
             "direct_assemble_p50_ms": float(np.median(assemble)),
             "direct_device_p50_ms": float(np.median(device)),
@@ -2823,6 +2892,474 @@ def phase_hybrid_parity(np, torch, card: str, parity: dict) -> dict:
     return tron_launches
 
 
+# -- glm_train -------------------------------------------------------------
+
+class _Messages(logging.Handler):
+    """Collects a logger's messages."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def glm_cli(torch, argv: list, device: str) -> dict:
+    """One run of the port's CLI (cli.train_glm.run): its summary, seconds
+    (synchronised), peak device memory beyond what was allocated before
+    it, seconds by stage (the CLI's log) and whether the run_grid path
+    solved it."""
+    from photon_ml_torch.cli import train_glm
+
+    log = _Messages()
+    logger = logging.getLogger("photon_ml_torch.cli")
+    logger.addHandler(log)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        summary = train_glm.run(train_glm.build_parser().parse_args(
+            argv + ["--device", device]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(log)
+    stages = next(json.loads(m.split(": ", 1)[1]) for m in log.messages
+                  if m.startswith("seconds by stage: "))
+    return {"summary": summary, "seconds": seconds,
+            "peak_bytes": (torch.cuda.max_memory_allocated() - base
+                           if device == "cuda" else None),
+            "stage_seconds": stages,
+            "grid": any("reg grid" in m for m in log.messages)}
+
+
+def cli_gap(model_io, out_a: str, out_b: str, count: int) -> float:
+    """Largest coefficient gap between two CLI runs' saved models."""
+    gaps = []
+    for i in range(count):
+        a = model_io.load_glm(os.path.join(out_a, f"model-{i}"))
+        b = model_io.load_glm(os.path.join(out_b, f"model-{i}"))
+        gaps.append(float((a.coefficients.means
+                           - b.coefficients.means).abs().max()))
+    return max(gaps)
+
+
+def cli_report(run: dict, metric: str) -> dict:
+    models = run["summary"]["models"]
+    return {"cli_seconds": run["seconds"],
+            "cli_stage_seconds": run["stage_seconds"],
+            "cli_peak_bytes": run["peak_bytes"],
+            "cli_iterations": [m["iterations"] for m in models],
+            "cli_converged": [m["converged"] for m in models],
+            f"cli_{metric}": [m[metric] for m in models],
+            "cli_best_index": run["summary"]["best_index"]}
+
+
+def glm_config1(np, torch, rng, tmp: str) -> dict:
+    """Config 1 through the CLI at a1a's shape, on the card and the CPU,
+    with a 3-point L2 grid (the run_grid path)."""
+    from photon_ml_torch.data import synthetic
+    from photon_ml_torch.data.libsvm import write_libsvm
+    from photon_ml_torch.models import io as model_io
+
+    X, y = synthetic.a1a_like(rng, n=A1A_TRAIN + A1A_VAL, d=A1A_DIM)
+    labels = 2.0 * y - 1.0  # a1a ships ±1 labels
+    tr, va = os.path.join(tmp, "a1a"), os.path.join(tmp, "a1a.t")
+    write_libsvm(tr, X[:A1A_TRAIN], labels[:A1A_TRAIN])
+    write_libsvm(va, X[A1A_TRAIN:], labels[A1A_TRAIN:])
+    argv = ["--train", tr, "--validation", va,
+            "--task", "LOGISTIC_REGRESSION", "--optimizer", "LBFGS",
+            "--reg-type", "L2", "--reg-weights", A1A_GRID,
+            "--max-iterations", str(GLM_MAX_ITERATIONS),
+            "--tolerance", str(GLM_TOLERANCE), "--output-mode", "ALL"]
+    outs = {d: os.path.join(tmp, f"a1a-{d}") for d in ("cuda", "cpu")}
+    runs = {d: glm_cli(torch, argv + ["--output-dir", outs[d]], d)
+            for d in ("cuda", "cpu")}
+    for d, r in runs.items():
+        if not r["grid"]:
+            raise AssertionError(f"glm_train config 1 ({d}): the 3-point "
+                                 "L2 grid did not take the run_grid path")
+    lanes = len(A1A_GRID.split(","))
+    gap = cli_gap(model_io, outs["cuda"], outs["cpu"], lanes)
+    aucs = [m["AUC"] for m in runs["cuda"]["summary"]["models"]]
+    if not all(np.isfinite(a) and a > 0.5 for a in aucs):
+        raise AssertionError(f"glm_train config 1: AUCs {aucs}")
+    if gap > PARITY_TOL:
+        raise AssertionError(f"glm_train config 1: card-CPU coefficient "
+                             f"gap {gap} > {PARITY_TOL}")
+    return {"config": 1, "task": "LOGISTIC_REGRESSION", "solver": "LBFGS",
+            "path": "cli (run_grid)", "rows": A1A_TRAIN,
+            "validation_rows": A1A_VAL, "features": A1A_DIM,
+            "reg_weights": A1A_GRID, **cli_report(runs["cuda"], "AUC"),
+            "cpu_cli_seconds": runs["cpu"]["seconds"],
+            "cpu_AUC": [m["AUC"] for m in runs["cpu"]["summary"]["models"]],
+            "cpu_best_index": runs["cpu"]["summary"]["best_index"],
+            "gap": gap}
+
+
+def make_msd(np, rng) -> dict:
+    """YearPredictionMSD's shape (90 features; 463,715 training and 51,630
+    validation rows) through glm_classification's draws (its logistic
+    labels unused), with a linear label, and a Poisson label over a
+    log-exposure offset column from a model on 10 of the features; the
+    CLI's Poisson label has no offset."""
+    from photon_ml_torch.data import synthetic
+
+    n = MSD_TRAIN + MSD_VAL
+    # The last column is the intercept (1.0).
+    X, _, w = synthetic.glm_classification(rng, n, MSD_DIM + 1,
+                                           weight_scale=0.3)
+    y_lin = (X @ w + rng.normal(size=n)).astype(np.float32)
+    w_p = np.where(np.arange(MSD_DIM + 1) < 10, w, 0.0).astype(np.float32)
+    w_p[-1] = 0.5
+    offsets = (rng.normal(size=n) * 0.3).astype(np.float32)
+    y_poi = rng.poisson(np.exp(X @ w_p + offsets)).astype(np.float32)
+    y_poi_cli = rng.poisson(np.exp(X[MSD_TRAIN:] @ w_p)).astype(np.float32)
+    return {"X": X, "linear": y_lin, "poisson": y_poi,
+            "poisson_cli": y_poi_cli, "offsets": offsets}
+
+
+def glm_api_fit(torch, problem, loss, batch, cfg, device: str) -> dict:
+    """One optim.problem.run fit: coefficients, result, seconds
+    (synchronised), the solver's host syncs and peak device memory beyond
+    the staged batch and what else was allocated before it."""
+    from photon_ml_torch.optim import lbfgs, tron
+
+    lbfgs.minimize.host_syncs = tron.minimize.host_syncs = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (coef, result), seconds = synced_seconds(torch, lambda: problem.run(
+        loss, batch, cfg, intercept_index=MSD_DIM))
+    return {"coef": coef, "result": result, "seconds": seconds,
+            "host_syncs": lbfgs.minimize.host_syncs
+            + tron.minimize.host_syncs,
+            "peak_bytes": (torch.cuda.max_memory_allocated() - base
+                           if device == "cuda" else None)}
+
+
+def device_events(prof) -> list:
+    """The profile's events that ran on the card (kernels, copies and
+    sets). An operator's own entry also carries the device time of the
+    kernels it launched, so a sum over every entry counts them twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def busy_share(torch, fn) -> dict:
+    """``fn`` again under torch.profiler: the card's busy time (kernels
+    and copies) against the wall, and the launches on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = synced_seconds(torch, fn)
+    events = device_events(prof)
+    busy_us = sum(e.self_device_time_total for e in events)
+    return {"profiled_seconds": wall, "device_busy_us": busy_us,
+            "device_busy_share": busy_us * 1e-6 / wall,
+            "device_launches": sum(e.count for e in events)}
+
+
+def grid_eval(torch, agg, loss, batch, lanes: int) -> dict:
+    """One value_and_gradient over ``lanes`` coefficient rows at once: the
+    device bytes it allocates beyond its inputs, its time on the card and
+    per call from Python, and the kernels it launches (by the profiler,
+    over ``GRID_PROFILED`` calls; a window of one call recorded none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    W = torch.zeros((lanes, batch.dim), device=batch.features.device)
+
+    def evaluate():
+        return agg.value_and_gradient(loss, W, batch)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    evaluate()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        synced_seconds(torch, lambda: [evaluate()
+                                       for _ in range(GRID_PROFILED)])
+    return {"lanes": lanes, "extra_bytes": extra,
+            "ms": device_ms(torch, evaluate, reps=11, inner=20),
+            "call_ms": call_ms(torch, evaluate, reps=11, inner=20),
+            "kernels_per_call": {
+                e.key[:80]: e.count / GRID_PROFILED
+                for e in device_events(prof)}}
+
+
+def glm_api_config(np, torch, msd: dict, config: int) -> dict:
+    """Config 2 (linear TRON, L2) or 3 (Poisson OWL-QN, L1, offsets)
+    through optim.problem.run at MSD's shape, on the card and the CPU."""
+    from photon_ml_torch.data.batch import LabeledBatch
+    from photon_ml_torch.evaluation import evaluators as ev
+    from photon_ml_torch.models import io as model_io
+    from photon_ml_torch.models.coefficients import Coefficients
+    from photon_ml_torch.models.glm import GeneralizedLinearModel
+    from photon_ml_torch.ops import aggregators as agg
+    from photon_ml_torch.ops import losses
+    from photon_ml_torch.optim import OptimizerConfig, OptimizerType
+    from photon_ml_torch.optim import problem
+    from photon_ml_torch.optim.problem import GLMOptimizationConfiguration
+    from photon_ml_torch.optim.regularization import (RegularizationContext,
+                                                      RegularizationType)
+    from photon_ml_torch.types import TaskType
+
+    linear = config == 2
+    y = msd["linear" if linear else "poisson"]
+    offsets = None if linear else msd["offsets"]
+    task = (TaskType.LINEAR_REGRESSION if linear
+            else TaskType.POISSON_REGRESSION)
+    loss = losses.loss_for_task(task)
+    cfg = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(
+            optimizer_type=OptimizerType.TRON if linear
+            else OptimizerType.OWLQN,
+            max_iterations=GLM_MAX_ITERATIONS, tolerance=GLM_TOLERANCE),
+        regularization=RegularizationContext(
+            RegularizationType.L2 if linear else RegularizationType.L1,
+            MSD_L2 if linear else MSD_L1))
+    tr = slice(0, MSD_TRAIN)
+
+    def build(device):
+        return LabeledBatch.build(
+            msd["X"][tr], y[tr], offsets=None if linear else offsets[tr],
+            device=device)
+
+    batch, stage_s = synced_seconds(torch, lambda: build("cuda"))
+    fits = {"cuda": glm_api_fit(torch, problem, loss, batch, cfg, "cuda"),
+            "cpu": glm_api_fit(torch, problem, loss, build("cpu"), cfg,
+                               "cpu")}
+    profiled = busy_share(torch, lambda: problem.run(
+        loss, batch, cfg, intercept_index=MSD_DIM))
+    card = fits["cuda"]
+    model = GeneralizedLinearModel(task, card["coef"])
+    Xv = torch.from_numpy(msd["X"][MSD_TRAIN:]).cuda()
+    yv = torch.from_numpy(y[MSD_TRAIN:]).cuda()
+    ov = None if linear else torch.from_numpy(offsets[MSD_TRAIN:]).cuda()
+    etype = ev.EvaluatorType.parse("RMSE" if linear else "POISSON_LOSS")
+    metric, eval_s = synced_seconds(torch, lambda: float(ev.evaluate(
+        etype, model.compute_score(Xv, ov), yv)))
+    if linear:
+        # The constant predictor: the training labels' mean.
+        baseline = float(np.sqrt(np.mean(
+            (y[MSD_TRAIN:] - np.mean(y[tr])) ** 2)))
+        if not metric < baseline:
+            raise AssertionError(f"glm_train config 2: RMSE {metric} not "
+                                 f"below the constant predictor's "
+                                 f"{baseline}")
+    else:
+        # The constant rate over the offsets: log(Σy / Σ e^offset).
+        rate = np.log(np.sum(y[tr]) / np.sum(np.exp(offsets[tr])))
+        s0 = rate + offsets[MSD_TRAIN:]
+        baseline = float(np.mean(np.exp(s0) - y[MSD_TRAIN:] * s0))
+    if not np.isfinite(metric):
+        raise AssertionError(f"glm_train config {config}: metric {metric}")
+    gap = float((card["coef"].means.cpu()
+                 - fits["cpu"]["coef"].means).abs().max())
+    if gap > PARITY_TOL:
+        raise AssertionError(f"glm_train config {config}: card-CPU "
+                             f"coefficient gap {gap} > {PARITY_TOL}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model-0")
+        model_io.save_glm(model, path)
+        back = model_io.load_glm(path, device="cuda")
+    if not torch.equal(back.coefficients.means, card["coef"].means):
+        raise AssertionError(f"glm_train config {config}: load_glm did not "
+                             "read the saved model back bit for bit")
+    out = {"config": config, "task": task.value,
+           "solver": "TRON" if linear else "OWLQN",
+           "path": "optim.problem.run", "rows": MSD_TRAIN,
+           "validation_rows": MSD_VAL, "features": MSD_DIM,
+           "reg": f"{'L2' if linear else 'L1'} {cfg.regularization.reg_weight}",
+           "offsets": not linear,
+           "fit_seconds": card["seconds"], "cpu_seconds": fits["cpu"]["seconds"],
+           "stage_seconds": stage_s, "evaluate_seconds": eval_s,
+           "iterations": int(card["result"].iterations[0]),
+           "converged": bool(card["result"].converged[0]),
+           "cpu_iterations": int(fits["cpu"]["result"].iterations[0]),
+           "cpu_converged": bool(fits["cpu"]["result"].converged[0]),
+           "host_syncs": card["host_syncs"],
+           "cpu_host_syncs": fits["cpu"]["host_syncs"],
+           "final_value": float(card["result"].value[0]),
+           "cpu_final_value": float(fits["cpu"]["result"].value[0]),
+           etype.name: metric, f"constant_{etype.name}": baseline,
+           "nonzero_coefficients": int((card["coef"].means != 0).sum()),
+           "peak_bytes": card["peak_bytes"], "gap": gap,
+           "model_roundtrip_bits": True, **profiled}
+    if linear:
+        lane = {f"L{g['lanes']}": g for g in (
+            grid_eval(torch, agg, loss, batch, 1),
+            grid_eval(torch, agg, loss, batch, GRID_LANES))}
+        x_bytes = batch.features.numel() * 4
+        if lane[f"L{GRID_LANES}"]["extra_bytes"] >= x_bytes:
+            raise AssertionError(
+                f"a {GRID_LANES}-lane evaluation allocated "
+                f"{lane[f'L{GRID_LANES}']['extra_bytes']} bytes, a copy of "
+                f"X ({x_bytes} bytes)")
+        out["grid_evaluation"] = {**lane, "x_bytes": x_bytes}
+    return out
+
+
+def glm_msd_cli(np, torch, msd: dict, tmp: str) -> tuple:
+    """Configs 2 and 3 through the CLI on the card, on LIBSVM files of the
+    51,630-row split (80% to train on); config 3's file carries no
+    offsets."""
+    from photon_ml_torch.data.libsvm import write_libsvm
+    from photon_ml_torch.models import io as model_io
+
+    X = msd["X"][MSD_TRAIN:, :MSD_DIM]  # the CLI adds its own intercept
+    cut = int(0.8 * MSD_VAL)
+    paths = {}
+    for part, rows in (("tr", slice(0, cut)), ("va", slice(cut, MSD_VAL))):
+        lin = os.path.join(tmp, f"msd.{part}")
+        write_libsvm(lin, X[rows], msd["linear"][MSD_TRAIN:][rows])
+        # The same rows with the Poisson label: only the label differs.
+        poi = os.path.join(tmp, f"msd-poisson.{part}")
+        with open(lin) as src, open(poi, "w") as dst:
+            for label, line in zip(msd["poisson_cli"][rows].tolist(), src):
+                dst.write(f"{label:g} {line.split(None, 1)[1]}"
+                          if " " in line.strip() else f"{label:g} \n")
+        paths[part] = (lin, poi)
+    out = {}
+    for config, k, flags, metric in (
+            (2, 0, ["--task", "LINEAR_REGRESSION", "--optimizer", "TRON",
+                    "--reg-type", "L2", "--reg-weights", str(MSD_L2)],
+             "RMSE"),
+            (3, 1, ["--task", "POISSON_REGRESSION", "--optimizer", "OWLQN",
+                    "--reg-type", "L1", "--reg-weights", str(MSD_CLI_L1)],
+             "POISSON_LOSS")):
+        outdir = os.path.join(tmp, f"msd-{config}")
+        run = glm_cli(torch, ["--train", paths["tr"][k],
+                              "--validation", paths["va"][k],
+                              "--output-dir", outdir,
+                              "--max-iterations", str(GLM_MAX_ITERATIONS),
+                              "--tolerance", str(GLM_TOLERANCE), *flags],
+                      "cuda")
+        value = run["summary"]["models"][0][metric]
+        if not np.isfinite(value):
+            raise AssertionError(f"glm_train config {config} (CLI): "
+                                 f"{metric} {value}")
+        if config == 2:
+            yv = msd["linear"][MSD_TRAIN:]
+            baseline = float(np.sqrt(np.mean(
+                (yv[cut:] - np.mean(yv[:cut])) ** 2)))
+            if not value < baseline:
+                raise AssertionError(f"glm_train config 2 (CLI): RMSE "
+                                     f"{value} not below {baseline}")
+        model = model_io.load_glm(os.path.join(outdir, "model-0"),
+                                  device="cuda")
+        if not bool(torch.isfinite(model.coefficients.means).all()):
+            raise AssertionError(f"glm_train config {config} (CLI): "
+                                 "non-finite coefficients")
+        out[config] = {"cli_rows": cut, "cli_validation_rows": MSD_VAL - cut,
+                       **cli_report(run, metric)}
+    return out[2], out[3]
+
+
+def phase_glm_train(np, torch, card: str) -> dict:
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        results.append(glm_config1(np, torch, rng, tmp))
+        emit("glm_train", card=card, **results[-1])
+        msd, gen_s = synced_seconds(torch, lambda: make_msd(np, rng))
+        cli2, cli3 = glm_msd_cli(np, torch, msd, tmp)
+        for config, cli in ((2, cli2), (3, cli3)):
+            results.append({**glm_api_config(np, torch, msd, config), **cli,
+                            "generation_seconds": gen_s})
+            emit("glm_train", card=card, **results[-1])
+        del msd
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit("glm_train", card=card, seconds=seconds,
+         max_gap=max(r["gap"] for r in results))
+    return {"configs": results, "seconds": seconds}
+
+
+# -- glm_gradient_step -------------------------------------------------------
+
+def phase_glm_gradient_step(np, torch, card: str) -> dict:
+    """BASELINE metric 1 (bench.py bench_gradient_step): the port's dense
+    value_and_gradient on a chain w ← w − 1e-9·g, samples per second from
+    the slope between STEP_SHORT and STEP_LONG steps."""
+    from photon_ml_torch.data.batch import LabeledBatch
+    from photon_ml_torch.ops import aggregators as agg
+    from photon_ml_torch.ops import losses
+
+    t0 = time.perf_counter()
+    n, d = STEP_ROWS, STEP_DIM
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = rng.integers(0, 2, size=n).astype(np.float32)
+    batch = LabeledBatch.build(X, y, device="cuda")
+    del X
+
+    def run(steps: int) -> float:
+        w = torch.zeros((d,), device="cuda")
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            _, g = agg.value_and_gradient(losses.LOGISTIC, w, batch)
+            w = w - 1e-9 * g  # chain: the next step depends on this one
+        end.record()
+        end.synchronize()
+        if not bool(torch.isfinite(w).all()):
+            raise AssertionError("glm_gradient_step: non-finite w")
+        return start.elapsed_time(end) * 1e-3
+
+    run(STEP_SHORT)  # warm-up
+    short = [run(STEP_SHORT) for _ in range(STEP_RUNS)]
+    long = [run(STEP_LONG) for _ in range(STEP_RUNS)]
+    dt = (min(long) - min(short)) / (STEP_LONG - STEP_SHORT)
+    # X read twice (margins, then Xᵀr): the unfused bound; X read once: the
+    # bound of a pass that forms both from one read.
+    two_read_ms = 2.0 * 4 * n * d / PEAK_BYTES_PER_S * 1e3
+    one_read_ms = 4.0 * n * d / PEAK_BYTES_PER_S * 1e3
+    # One step on the card alone (a CUDA-graph replay) and the host's
+    # time to enqueue one: the chain's step is the larger of the two.
+    w0 = torch.zeros((d,), device="cuda")
+
+    def step():
+        return agg.value_and_gradient(losses.LOGISTIC, w0, batch)
+
+    step_device_ms = device_ms(torch, step, reps=11, inner=20)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)  # the card waits while we enqueue
+    t_host = time.perf_counter()
+    for _ in range(STEP_SHORT):
+        step()
+    enqueue_ms = (time.perf_counter() - t_host) * 1e3 / STEP_SHORT
+    torch.cuda.synchronize()
+    profiled = busy_share(torch, lambda: [step() for _ in range(STEP_SHORT)])
+    out = {"n": n, "d": d, "dtype": "float32",
+           "samples_per_s": n / dt, "ms_per_step": dt * 1e3,
+           "short_runs_s": short, "long_runs_s": long,
+           "step_device_ms": step_device_ms,
+           "step_enqueue_ms": enqueue_ms,
+           "bound_ms": two_read_ms, "bound_share": two_read_ms / (dt * 1e3),
+           "device_bound_share": two_read_ms / step_device_ms,
+           "bound_samples_per_s": n / (two_read_ms * 1e-3),
+           "one_read_bound_ms": one_read_ms,
+           "bf16": "slice 6 item 2",
+           "profiled_steps": STEP_SHORT, **profiled,
+           "seconds": time.perf_counter() - t0}
+    emit("glm_gradient_step", card=card, **out)
+    del batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2852,6 +3389,7 @@ def main() -> int:
          sources=_build.sources())
 
     checks = phase_kernels(torch, np)
+    floor_us = launch_floor_us(torch)
     launches, flushes = phase_serve(np, torch, card)
     trained = phase_train(np, torch, card)
     re_checks = phase_re_rows(np, torch, trained)
@@ -2886,6 +3424,8 @@ def main() -> int:
     parity = phase_sparse_parity(np, torch, card)
     phase_stream_parity(np, torch, card, parity)
     tron_hybrid_launches = phase_hybrid_parity(np, torch, card, parity)
+    phase_glm_train(np, torch, card)
+    phase_glm_gradient_step(np, torch, card)
 
     main_shape = next(c for c in checks if c["n"] == 64
                       and c["cache"] == "float32")
@@ -2898,7 +3438,7 @@ def main() -> int:
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
-        "call_ms": main_shape["call_ms"],
+        "call_ms": main_shape["call_ms"], "launch_floor_us": floor_us,
         "shape": "n=64 d=8 E=4097 float32 (serving, config a)",
         "flushes": flushes, "checks": checks}]
     # The re_rows entries report the largest per-user wave, the shape
@@ -2923,8 +3463,8 @@ def main() -> int:
                              "the device to compact its valid lanes"),
             "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-            "call_ms": m["call_ms"], "shape": shape,
-            "checks": len(re_checks)})
+            "call_ms": m["call_ms"], "launch_floor_us": floor_us,
+            "shape": shape, "checks": len(re_checks)})
     # The generic route's main paths are the streamed chunks' cold tier
     # and the hybrid cold margins; it is timed at the ELL main shape, over
     # the row terms that route would read there.

@@ -1,9 +1,10 @@
-"""Synthetic GAME datasets (port of ``game_data`` from
-``photon_ml_tpu/data/synthetic.py``).
+"""Synthetic datasets (port of ``glm_classification``, ``a1a_like`` and
+``game_data`` from ``photon_ml_tpu/data/synthetic.py``).
 
-Stands in for the MovieLens-20M shape of BASELINE config 4 with planted
-fixed and random effects, seeded and reproducible: the same generator
-draws the same numbers as the reference's.
+They stand in for BASELINE's public datasets, which are not fetched:
+a1a's shape for the GLM configs and MovieLens-20M's for config 4, with
+planted models, seeded and reproducible: each generator draws the same
+numbers in the same order as the reference's.
 """
 
 from __future__ import annotations
@@ -12,6 +13,40 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+
+def glm_classification(
+    rng: np.random.Generator,
+    n: int,
+    d: int,
+    *,
+    intercept: bool = True,
+    noise: float = 0.0,
+    weight_scale: float = 1.0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Balanced-ish binary data from a ground-truth logistic model.
+
+    Returns (X, y, w_true); last column of X is the intercept if requested.
+    """
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    if intercept:
+        X[:, -1] = 1.0
+    w_true = (rng.normal(size=d) * weight_scale).astype(np.float32)
+    logits = X @ w_true + noise * rng.normal(size=n).astype(np.float32)
+    p = 1.0 / (1.0 + np.exp(-logits))
+    y = (rng.uniform(size=n) < p).astype(np.float32)
+    return X, y, w_true
+
+
+def a1a_like(rng: np.random.Generator, n: int = 1605, d: int = 123,
+             density: float = 0.11) -> tuple[np.ndarray, np.ndarray]:
+    """Sparse binary features in the a1a regime (123 binary features,
+    ~14 set per row) with a planted logistic model."""
+    X = (rng.uniform(size=(n, d)) < density).astype(np.float32)
+    w_true = rng.normal(size=d).astype(np.float32) * 0.8
+    logits = X @ w_true - np.mean(X @ w_true)
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+    return X, y
 
 
 @dataclasses.dataclass

@@ -1,11 +1,13 @@
-"""GAME model persistence: the npz layout of ``photon_ml_tpu/models/io.py``.
+"""GAME and GLM model persistence: the npz layout of
+``photon_ml_tpu/models/io.py``.
 
 A model directory holds ``metadata.json`` plus one
 ``{fixed,random}-effect/<coordinate>/coefficients.npz`` per coordinate
 (reference: photon-client ``ModelProcessingUtils.scala``'s directory
-shape). Both packages read and write the same bytes, so a model trained
-by either serves in either, and :func:`game_model_digest` agrees across
-them.
+shape). A single GLM is a ``<path>.npz`` (``means``, optional
+``variances``) beside a ``<path>.json`` (``task``, ``dim``). Both
+packages read and write the same bytes, so a model trained by either
+serves in either, and :func:`game_model_digest` agrees across them.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from photon_ml_torch.game.models import (FixedEffectModel, GameModel,
                                          RandomEffectModel,
                                          SubspaceRandomEffectModel)
 from photon_ml_torch.models.coefficients import Coefficients
+from photon_ml_torch.models.glm import GeneralizedLinearModel
 from photon_ml_torch.types import TaskType
 from photon_ml_torch.utils.diskio import atomic_write
 
@@ -162,3 +165,41 @@ def load_game_model(path: str, device="cpu") -> GameModel:
         with np.load(os.path.join(path, sub, cid, "coefficients.npz")) as z:
             coords[cid] = (info, {k: z[k] for k in z.files})
     return game_model_from_arrays(meta["task"], coords, device=device)
+
+
+def _glm_base(path: str) -> str:
+    return path[:-4] if path.endswith(".npz") else path
+
+
+def save_glm(model: GeneralizedLinearModel, path: str) -> None:
+    """Write a single GLM (reference: legacy GLMSuite output):
+    ``<path>.npz`` and ``<path>.json``, each written atomically."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    base = _glm_base(path)
+    payload = {"means": _host(model.coefficients.means)}
+    if model.coefficients.variances is not None:
+        payload["variances"] = _host(model.coefficients.variances)
+    atomic_write(base + ".npz", lambda f: np.savez(f, **payload))
+    meta_body = json.dumps({"task": TaskType(model.task).value,
+                            "dim": int(model.coefficients.dim)})
+    atomic_write(base + ".json", lambda f: f.write(meta_body.encode()))
+
+
+def load_glm(path: str, device="cpu") -> GeneralizedLinearModel:
+    """Inverse of :func:`save_glm`; the coefficients land on
+    ``device``."""
+    base = _glm_base(path)
+    with np.load(base + ".npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    with open(base + ".json") as f:
+        meta = json.load(f)
+
+    def put(key):
+        if key not in arrays:
+            return None
+        return torch.from_numpy(arrays[key]).to(device)
+
+    return GeneralizedLinearModel(
+        task=TaskType(meta["task"]),
+        coefficients=Coefficients(means=put("means"),
+                                  variances=put("variances")))

@@ -10,7 +10,8 @@ Variance computation (reference ``computeVariances``,
 
 The objectives take a leading lane axis (see ``ops/aggregators.py``):
 over a bucket batch (E_b, cap, d) each lane is one entity's problem; over
-a flat (n, d) batch one lane is the whole problem.
+a flat (n, d) batch one lane is the whole problem, and :func:`run_grid`
+solves one lane per L2 weight of a grid over the same rows.
 """
 
 from __future__ import annotations
@@ -129,6 +130,56 @@ def run(loss: PointwiseLoss, batch: LabeledBatch,
                                   config.variance_computation,
                                   config.regularization, intercept_index)
     return Coefficients(means=w, variances=variances), result
+
+
+def run_grid(loss: PointwiseLoss, batch: LabeledBatch,
+             config: GLMOptimizationConfiguration, lambdas,
+             initial: Optional[Coefficients] = None,
+             norm: NormalizationContext = NormalizationContext(),
+             intercept_index: Optional[int] = None
+             ) -> tuple[Tensor, OptResult]:
+    """Fit the SAME GLM at every L2 weight in ``lambdas`` in one solve,
+    one lane per weight (port of ``photon_ml_tpu/parallel/problem.py``'s
+    ``run_grid``, which vmaps the solver over λ; here on one device).
+
+    Each evaluation reads the rows once for every lane, and λ is an
+    (L, 1) tensor folded in as ``f + ½λ‖w∘mask‖²`` and ``g + λ·w∘mask``.
+    Returns ``(W, result)`` with ``W`` of shape (len(lambdas), dim) and
+    the OptResult's per-lane rows. L2/NONE regularization with
+    L-BFGS/TRON only: L1 grids (OWL-QN's per-λ orthant sets) and
+    variance computation stay on the sequential :func:`run` path.
+    """
+    reg = config.regularization
+    if reg.l1_weight() > 0.0:
+        raise ValueError("run_grid handles L2/NONE grids; L1 grids use "
+                         "sequential run() (OWL-QN per-λ orthant sets)")
+    if OptimizerType(config.optimizer.optimizer_type) == OptimizerType.OWLQN:
+        raise ValueError("run_grid supports L-BFGS/TRON; OWL-QN exists for "
+                         "L1 objectives, which run_grid does not handle")
+    if VarianceComputationType(config.variance_computation) != \
+            VarianceComputationType.NONE:
+        raise ValueError("run_grid does not compute variances; evaluate "
+                         "them per selected model via run()")
+    dim = batch.dim
+    X = batch.features
+    mask = _mask(dim, intercept_index, X)
+    lam = torch.as_tensor(lambdas, dtype=torch.float32,
+                          device=X.device).reshape(-1, 1)
+
+    def vg(w: Tensor):
+        f, g = agg.value_and_gradient(loss, w, batch, norm)
+        wm = w * mask
+        return (f + 0.5 * lam[:, 0] * torch.sum(wm * wm, dim=-1),
+                g + lam * wm)
+
+    def hvp(w: Tensor, v: Tensor):
+        return agg.hessian_vector(loss, w, v, batch, norm) + lam * (v * mask)
+
+    opt_cfg = resolve_optimizer_config(config.optimizer, False)
+    w0 = initial.means if initial is not None else X.new_zeros((dim,))
+    result = optimize(vg, w0.expand(lam.shape[0], dim).clone(), opt_cfg,
+                      hvp=hvp)
+    return result.w, result
 
 
 def compute_variances(loss: PointwiseLoss, w: Tensor, batch: LabeledBatch,
