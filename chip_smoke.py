@@ -35,14 +35,21 @@ code is non-zero:
              against their plain versions at every wave shape the train
              phase gave them, on an all-padding wave and at a sweep
              shape, and times kernel, plain version and library call.
+   train_bf16 — the same 20M rows with bfloat16 feature storage on the
+             fixed effect and both random effects (the reference's
+             flagship dtype), one outer iteration (cut, for time):
+             descent seconds, peak memory and each update's validation
+             AUC beside the float32 run's (within 5e-3), the stored
+             dtypes, row-mover launches = the waves.
 7. train_parity — the same descent at 300,000 rows (same widths and
-             entity counts) on the card and on the CPU in one process.
-             Within 5e-3: the validation AUC after each update and the
-             mean validation probability of the two runs; and each
-             update of the card's run replayed on the CPU from the same
-             offsets and warm start, the fixed effect's coefficients and
-             those of every random-effect entity the data determines
-             (16+ rows, both labels).
+             entity counts), one outer iteration (cut, for time), on the
+             card and on the CPU in one process. Within 5e-3: the
+             validation AUC after each update and the mean validation
+             probability of the two runs; and each update of the card's
+             run replayed on the CPU from the same offsets and warm
+             start, the fixed effect's coefficients and those of every
+             random-effect entity the data determines (16+ rows, both
+             labels). train_bf16_parity: the same in bfloat16.
 8. sparse_train — the config-5 path: Criteo-shaped sparse data from a
              seed (10,000,000 rows, d = 1,000,000, 32 slots, Zipf(1.3)
              columns; 5% held out), fitted through GameEstimator.fit with
@@ -52,8 +59,10 @@ code is non-zero:
              ell_rmatvec's launch count is read around each fit alone and
              must equal the solver's objective evaluations (TRON: plus its
              H·v products); scatter_rowterm, which reads (n, k) row terms,
-             must not launch there. The staged bytes (batch and layout)
-             and each fit's peak device memory are reported.
+             must not launch there. The staged bytes (batch and layout),
+             each fit's peak device memory and one evaluation's
+             milliseconds at the L-BFGS fit's final iterate (the ELL side
+             of hybrid_bf16_train's layout comparison) are reported.
 9. kernels — holds ell_scatter's two routes against their plain versions
              on the card at the main path's shape (with the fit's own
              residual), at d = 512 and 2048, with uniform ids over d = 1M
@@ -69,11 +78,12 @@ code is non-zero:
              old route (the multiply, then scatter_rowterm), its plain
              version and a CSR torch.mv of Xᵀ; and the bytes each route
              allocates a call.
-10. stream_train — the row-streamed config-5 fixed effect: the same
-             9,500,000 training rows and 500,000 validation rows, fitted
-             through GameEstimator(streaming=StreamingConfig(...)) in
-             int8 chunks of 262,144 rows with 512 hot columns (37 chunks,
-             the last one padded), 20 L-BFGS iterations. hot_margins,
+10. stream_train — the row-streamed config-5 fixed effect: the first
+             4,750,000 of those training rows (cut, for time) and the
+             500,000 validation rows, fitted through
+             GameEstimator(streaming=StreamingConfig(...)) in int8 chunks
+             of 262,144 rows with 512 hot columns (19 chunks, the last
+             one padded), 20 L-BFGS iterations. hot_margins,
              hot_rmatvec and ell_scatter launches are read around the fit
              alone and must equal the chunks times the passes that run
              them; two value-and-gradient passes at the final iterate
@@ -130,6 +140,30 @@ code is non-zero:
              Python, and its device time from torch.profiler) over all
              classes of a gradient pass, and each class alone beside its
              bound.
+   hybrid_bf16_train — config 5's default layout in bfloat16 at all
+             9.5M training rows (not cut): a reckoning first (hot
+             columns at the n/4096 threshold, block bytes, cold slots,
+             the card's free memory; the phase fails where the block
+             cannot fit), then GameEstimator.fit with
+             FixedEffectDataConfiguration(feature_dtype="bfloat16"),
+             L-BFGS 60, L2 1.0: staging (host layout, device fill, cold
+             layout), block bytes, peak memory, ms an evaluation beside
+             sparse_train's ELL evaluation at the same rows, the solve,
+             both AUCs, hot_value_and_gradient launches = evaluations,
+             two passes the same bits. The bfloat16 entry of hot_pass at
+             this block (z and xv bit for bit stream_fused.hot_margins'
+             route, each hot gradient column within 1e-5 · Σ|terms| of
+             its float64 sum over the same rounded operands plus one
+             bfloat16 step of r where r sits within its own resolution of
+             a rounding midpoint, parity_rel within 1e-3 against the
+             plain version over 65,536-row blocks, two launches the same
+             bits), timed against the two- and three-kernel routes, the
+             library route (torch.mm with a float32 output) and the
+             plain version, beside its bound.
+   stream_bf16_train — stream_train in bfloat16 chunks (X_hot and
+             cold_vals) over the first 2,359,296 training rows (9 chunks;
+             cut, for time): GB/s and bytes a pass, launches = chunks ×
+             passes, two passes the same bits, the CPU replay, AUC.
 14. sparse_parity — the same fit at 300,000 rows on the card and on the
              CPU in one process: every coefficient within 5e-3 after 10
              iterations; every objective evaluation of the card's
@@ -137,8 +171,9 @@ code is non-zero:
              (value within 1e-5 relative, each gradient column within
              1e-5 of its Σ|r·x| plus 2^-21 of its Σ w·|x|, the row
              terms' own float32 resolution); and the 60-iteration fits'
-             validation AUC within 5e-3 (their coefficients are reported,
-             beside the CPU's spread over a reversed row order).
+             validation AUC within 5e-3 (their coefficients are
+             reported; the CPU's own refit over reversed rows, which
+             measured that spread, is left out for time).
 15. stream_parity — those 300,000 rows streamed on the card in 65,536-row
              chunks, two of them pinned: float32 coefficients within
              5e-3 of the resident fit's after 10 iterations, every
@@ -151,6 +186,7 @@ code is non-zero:
              card: hot_value_and_gradient launches equal to its gradient
              evaluations, hot_hessian_vector's to its H·v products,
              cold_grad's to both, and hot_rmatvec none.
+   hybrid_bf16_parity — the same with a bfloat16 hot block.
 17. glm_train — the GLM driver path, BASELINE configs 1–3, at the public
              datasets' shapes from seed 2026 (the datasets are not
              fetched). Config 1, logistic L-BFGS with L2 on a1a_like at
@@ -177,10 +213,21 @@ code is non-zero:
              ops.aggregators.value_and_gradient on the chain
              w ← w − 1e-9·g, timed with CUDA events as the slope between
              20 and 220 steps (minimum of 5 each); samples/s and the share
-             of the two-read bound (X read twice at 3.35 TB/s).
+             of the two-read bound (X read twice at 3.35 TB/s); and its
+             bfloat16 variant (bench.py:227–231, the same X rounded to
+             bfloat16), which must allocate no float32 copy of X.
+
+The phases run in the order of the main path's data: train,
+train_bf16, the train parities, sparse_train, its kernels, stream_train,
+its kernels, hybrid_train, cold_grad's kernels, hybrid_bf16_train,
+stream_bf16_train, then the sparse, stream, hybrid and hybrid_bf16
+parities and the GLM phases. Each line carries the seconds since the
+start ("at_seconds").
 
 Then it prints the kernel table ({"kernels": [...]}; the hybrid block's
-fused pass as hot_value_and_gradient and hot_hessian_vector), nvidia-smi's
+fused pass as hot_value_and_gradient and hot_hessian_vector, its
+bfloat16 entry as hot_value_and_gradient_bf16 and
+hot_hessian_vector_bf16), nvidia-smi's
 "name, power.limit" line, and as its last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -297,6 +344,20 @@ HYBRID_ROWS = 4_750_000
 HYBRID_ROWS_CUT = 2_000_000
 # hybrid_parity's TRON run on the card.
 TRON_PARITY_ITERATIONS = 5
+# The int8 stream_train streams the first STREAM_ROWS training rows (10
+# chunks, the last one padded); stream_bf16_train the first
+# STREAM_BF16_ROWS (9 whole chunks). Both are cut for the script's time.
+STREAM_ROWS = 2_500_000
+STREAM_BF16_ROWS = 9 * STREAM_CHUNK_ROWS
+# bfloat16 storage (the reference's flagship dtype): hybrid_bf16_train
+# stages all of sparse_train's 9.5M training rows in the hybrid layout's
+# bfloat16 hot block (n/4096 threshold, about 57 GB); its kernel checks
+# sum the block in float64 over blocks of this many rows.
+BF16_CHECK_ROWS = 65_536
+# train_bf16 and both train parities run this many outer iterations
+# (train runs DESCENT_ITERATIONS); cut for the script's time.
+BF16_DESCENT_ITERATIONS = 1
+PARITY_DESCENT_ITERATIONS = 1
 
 # BASELINE configs 1-3 at the public datasets' shapes (not fetched):
 # a1a (123 binary features, 1,605 training rows and a1a.t's 30,956
@@ -330,8 +391,13 @@ STEP_LONG = 220
 STEP_RUNS = 5
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_seconds": time.perf_counter() - _T0}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -786,8 +852,11 @@ def make_train_data(np, rows: int):
             ds.subset(np.arange(rows - n_val, rows)))
 
 
-def build_coordinates(np, torch, train, device: str):
-    """The three coordinates as the flagship builds them, and each one's
+def build_coordinates(np, torch, train, device: str,
+                      feature_dtype: str = "float32",
+                      iterations: int = 25):
+    """The three coordinates as the flagship builds them (L-BFGS
+    ``iterations``), features stored in ``feature_dtype``, and each one's
     staging seconds (bucketing and the copies onto the device)."""
     from photon_ml_torch.game.coordinates import (FixedEffectCoordinate,
                                                   RandomEffectCoordinate)
@@ -798,18 +867,19 @@ def build_coordinates(np, torch, train, device: str):
                                                       RegularizationType)
 
     cfg = GLMOptimizationConfiguration(
-        optimizer=OptimizerConfig(max_iterations=25, tolerance=1e-7),
+        optimizer=OptimizerConfig(max_iterations=iterations, tolerance=1e-7),
         regularization=RegularizationContext(RegularizationType.L2, 1.0))
 
     def random_effect(re_type):
         return RandomEffectCoordinate(
             train, re_type, f"re_{re_type}", losses.LOGISTIC, cfg,
             upper_bound=UPPER_BOUND, rng=np.random.default_rng(0),
-            device=device)
+            feature_dtype=feature_dtype, device=device)
 
     builders = (
         ("fixed", lambda: FixedEffectCoordinate(
-            train, "global", losses.LOGISTIC, cfg, device=device)),
+            train, "global", losses.LOGISTIC, cfg,
+            feature_dtype=feature_dtype, device=device)),
         ("per-user", lambda: random_effect("userId")),
         ("per-item", lambda: random_effect("itemId")))
     coords, seconds = {}, {}
@@ -822,9 +892,10 @@ def build_coordinates(np, torch, train, device: str):
     return coords, seconds
 
 
-def run_descent(torch, coords, val, device: str):
-    """DESCENT_ITERATIONS outer iterations over SEQ, with the validation
-    AUC after each update; returns (model, history, seconds)."""
+def run_descent(torch, coords, val, device: str,
+                iterations: int = DESCENT_ITERATIONS):
+    """``iterations`` outer iterations over SEQ, with the validation AUC
+    after each update; returns (model, history, seconds)."""
     from photon_ml_torch.evaluation.evaluators import auc
     from photon_ml_torch.game import descent
     from photon_ml_torch.types import TaskType
@@ -837,7 +908,7 @@ def run_descent(torch, coords, val, device: str):
     t0 = time.perf_counter()
     model, history = descent.run(
         TaskType.LOGISTIC_REGRESSION, coords,
-        descent.CoordinateDescentConfig(SEQ, iterations=DESCENT_ITERATIONS),
+        descent.CoordinateDescentConfig(SEQ, iterations=iterations),
         validation_fn=validation)
     return model, history, time.perf_counter() - t0
 
@@ -895,7 +966,81 @@ def phase_train(np, torch, card: str) -> dict:
          launches={"gather_rows": gathers, "scatter_rows_": scatters},
          solver_host_syncs=syncs, max_memory_allocated=peak)
     return {"coords": coords, "model": model, "gathers": gathers,
-            "scatters": scatters}
+            "scatters": scatters, "train": train, "val": val,
+            "aucs": aucs, "max_memory_allocated": peak,
+            "descent_seconds": descent_s}
+
+
+def phase_train_bf16(np, torch, card: str, train, val, f32: dict) -> dict:
+    """Config 4 with bfloat16 feature storage (the reference's flagship
+    dtype) on the fixed effect and both random effects: train's rows,
+    BF16_DESCENT_ITERATIONS outer iteration(s), beside train's float32
+    run after as many updates."""
+    from photon_ml_torch.data.batch import LabeledBatch
+    from photon_ml_torch.ops import aggregators as agg
+    from photon_ml_torch.ops import losses
+    from photon_ml_torch.ops.kernels import re_rows as rr
+
+    coords, staging_s = build_coordinates(np, torch, train, "cuda",
+                                          "bfloat16")
+    waves = {cid: coords[cid].num_waves for cid in SEQ[1:]}
+    torch.cuda.reset_peak_memory_stats()
+    rr.gather_rows.launches = 0  # the bfloat16 training run starts
+    rr.scatter_rows_.launches = 0
+    model, history, descent_s = run_descent(
+        torch, coords, val, "cuda", BF16_DESCENT_ITERATIONS)
+    launches = {"gather_rows": rr.gather_rows.launches,  # ... and ends
+                "scatter_rows_": rr.scatter_rows_.launches}
+    peak = torch.cuda.max_memory_allocated()
+    expected = BF16_DESCENT_ITERATIONS * sum(waves.values())
+    stored = {"fixed": coords["fixed"]._staged.features.dtype,
+              **{cid: coords[cid]._waves[0].X.dtype for cid in SEQ[1:]}}
+    aucs = [r["validation"]["auc"] for r in history.records]
+    f32_aucs = f32["aucs"][:len(aucs)]
+    # One evaluation over the largest per-user wave, its bfloat16 block
+    # against a float32 copy of it: what the storage costs a solve step.
+    wave = max(coords["per-user"]._waves, key=lambda x: x.X.numel())
+    w0 = torch.full((wave.X.shape[0], wave.X.shape[2]), 0.01, device="cuda")
+    wave_ms = {"shape": list(wave.X.shape)}
+    for label, X in (("bfloat16", wave.X), ("float32", wave.X.float())):
+        batch = LabeledBatch(X, wave.y, wave.w, torch.zeros_like(wave.y))
+
+        def evaluation():
+            return agg.value_and_gradient(losses.LOGISTIC, w0, batch)
+
+        wave_ms[label] = {
+            "ms": device_ms(torch, evaluation, reps=5, inner=10),
+            "call_ms": call_ms(torch, evaluation, reps=5, inner=10)}
+    del X, batch
+    auc_diff = float(np.max(np.abs(np.subtract(aucs, f32_aucs))))
+    emit("train_bf16", card=card, rows=train.num_rows,
+         val_rows=val.num_rows, feature_dtype="bfloat16",
+         stored={k: str(v) for k, v in stored.items()},
+         iterations=BF16_DESCENT_ITERATIONS, staging_seconds=staging_s,
+         updates=[{"iteration": r["iteration"],
+                   "coordinate": r["coordinate"],
+                   "train_seconds": r["train_seconds"],
+                   "auc": r["validation"]["auc"]} for r in history.records],
+         descent_seconds=descent_s, auc=aucs, float32_auc=f32_aucs,
+         max_auc_diff=auc_diff, launches=launches,
+         max_memory_allocated=peak,
+         float32_max_memory_allocated=f32["max_memory_allocated"],
+         wave_evaluation=wave_ms,
+         tolerance=PARITY_TOL)
+    for cid, table in coefficient_tables(model).items():
+        if table.device.type != "cuda" or table.dtype != torch.float32 \
+                or not bool(torch.isfinite(table).all()):
+            raise AssertionError(f"train_bf16: {cid} coefficients are not "
+                                 "finite float32 on the card")
+    if set(stored.values()) != {torch.bfloat16} \
+            or launches != {"gather_rows": expected,
+                            "scatter_rows_": expected} \
+            or not auc_diff <= PARITY_TOL:
+        raise AssertionError(
+            f"train_bf16: stored {stored}, launches {launches} (expected "
+            f"{expected} each), AUC {aucs} against float32's {f32_aucs}")
+    del coords, model
+    return {"launches": launches}
 
 
 # -- re_rows kernels -------------------------------------------------------
@@ -1028,55 +1173,94 @@ def well_determined(np, coord):
     return out
 
 
-def compare_update(np, coord, got, want) -> dict:
+def bf16_step(np, a, b):
+    """The bfloat16 step (one unit in the last place) of each model's
+    largest coefficient: per row of a table, over the whole of a
+    vector (the larger of a's and b's)."""
+    top = np.max(np.maximum(np.abs(a), np.abs(b)), axis=-1, keepdims=True)
+    _, exp = np.frexp(top)
+    return np.ldexp(1.0, exp - 8)
+
+
+def compare_update(np, coord, got, want, bf16: bool = False) -> dict:
     """Largest coefficient difference of one update: over the whole
     table ("all") and over what the check holds ("held"): the fixed
-    effect in full, a random effect's well-determined entities."""
+    effect in full, a random effect's well-determined entities; and the
+    largest share of each coefficient's allowance ("held_ratio"):
+    PARITY_TOL, plus under bfloat16 storage one bfloat16 step of the
+    model's (the entity's) largest coefficient: the objective sees the
+    coefficients only through their bfloat16 rounding, so every margin
+    moves in steps of that size, and the other coefficients of the model
+    settle wherever those steps leave them (ROADMAP §C)."""
     if hasattr(got, "coefficients"):
-        diff = (got.coefficients.means.cpu()
-                - want.coefficients.means.cpu()).abs().numpy()
-        return {"all": float(diff.max()), "held": float(diff.max())}
-    diff = (got.means.cpu() - want.means.cpu()).abs().numpy()
-    held = well_determined(np, coord)
-    return {"all": float(diff.max()), "held": float(diff[held].max()),
-            "held_entities": int(held.sum()),
-            "trained_entities": int(coord.bucketing.trained_entities.sum())}
+        a = got.coefficients.means.cpu().numpy()
+        b = want.coefficients.means.cpu().numpy()
+        held = np.ones(a.shape[0], bool)
+    else:
+        a, b = got.means.cpu().numpy(), want.means.cpu().numpy()
+        held = well_determined(np, coord)
+    diff = np.abs(a - b)
+    allowed = PARITY_TOL + (bf16_step(np, a, b) if bf16 else 0.0)
+    out = {"all": float(diff.max()), "held": float(diff[held].max()),
+           "held_ratio": float((diff / allowed)[held].max())}
+    if a.ndim > 1:
+        out.update(held_entities=int(held.sum()),
+                   trained_entities=int(
+                       coord.bucketing.trained_entities.sum()))
+    return out
 
 
-def phase_train_parity(np, torch, card: str) -> None:
-    """The descent on the card and on the CPU. Each update of the card's
-    run is replayed on the CPU from the same offsets and warm start and
-    compared there: the two descents' own paths may part at entities the
-    data does not determine, and every later update would inherit that."""
-    train, val = make_train_data(np, PARITY_ROWS)
-    cuda_coords, _ = build_coordinates(np, torch, train, "cuda")
+def phase_train_parity(np, torch, card: str, train, val,
+                       feature_dtype: str = "float32",
+                       phase: str = "train_parity",
+                       iterations: int = 25) -> None:
+    """The descent (PARITY_DESCENT_ITERATIONS outer iterations, features
+    in ``feature_dtype``, each solve L-BFGS ``iterations``) on the card
+    and on the CPU. Each update of the card's run is replayed on the CPU
+    from the same offsets and warm start and compared there: the two
+    descents' own paths may part at entities the data does not
+    determine, and every later update would inherit that. In bfloat16 the
+    solves run PARITY_EARLY_ITERATIONS and each coefficient may also
+    differ by one bfloat16 step of its model's largest coefficient
+    (compare_update): rounding the coefficients to
+    bfloat16 makes each objective a step function of them, and two
+    correct solvers part after about 20 iterations (ROADMAP §C)."""
+    cuda_coords, _ = build_coordinates(np, torch, train, "cuda",
+                                       feature_dtype, iterations)
     recorded = {cid: RecordedCoordinate(c) for cid, c in cuda_coords.items()}
-    cuda_model, cuda_hist, cuda_s = run_descent(torch, recorded, val, "cuda")
-    cpu_coords, _ = build_coordinates(np, torch, train, "cpu")
-    cpu_model, cpu_hist, cpu_s = run_descent(torch, cpu_coords, val, "cpu")
+    cuda_model, cuda_hist, cuda_s = run_descent(
+        torch, recorded, val, "cuda", PARITY_DESCENT_ITERATIONS)
+    cpu_coords, _ = build_coordinates(np, torch, train, "cpu",
+                                      feature_dtype, iterations)
+    cpu_model, cpu_hist, cpu_s = run_descent(
+        torch, cpu_coords, val, "cpu", PARITY_DESCENT_ITERATIONS)
     updates = []
     for cid in SEQ:
         for k, (offsets, initial, got) in enumerate(recorded[cid].calls):
             want = cpu_coords[cid].train_model(offsets, initial=initial)
             updates.append({"coordinate": cid, "iteration": k,
                             **compare_update(np, cpu_coords[cid], got,
-                                             want)})
+                                             want, feature_dtype ==
+                                             "bfloat16")})
     auc_cuda = [r["validation"]["auc"] for r in cuda_hist.records]
     auc_cpu = [r["validation"]["auc"] for r in cpu_hist.records]
     auc_diff = float(np.max(np.abs(np.subtract(auc_cuda, auc_cpu))))
     p_diff = (torch.sigmoid(cuda_model.score(val)).cpu()
               - torch.sigmoid(cpu_model.score(val)).cpu()).abs()
-    emit("train_parity", card=card, rows=train.num_rows, updates=updates,
+    emit(phase, card=card, rows=train.num_rows,
+         feature_dtype=feature_dtype,
+         iterations=PARITY_DESCENT_ITERATIONS,
+         solver_iterations=iterations, updates=updates,
          auc_cuda=auc_cuda, auc_cpu=auc_cpu, max_auc_diff=auc_diff,
          val_probability_diff={"mean": float(p_diff.mean()),
                                "max": float(p_diff.max())},
          descent_seconds={"cuda": cuda_s, "cpu": cpu_s},
          tolerance=PARITY_TOL, well_determined_rows=WELL_DETERMINED_ROWS)
-    bad = [u for u in updates if not u["held"] <= PARITY_TOL]
+    bad = [u for u in updates if not u["held_ratio"] <= 1.0]
     if bad or not auc_diff <= PARITY_TOL \
             or not float(p_diff.mean()) <= PARITY_TOL:
         raise AssertionError(
-            f"train_parity: cuda and cpu differ beyond {PARITY_TOL}: "
+            f"{phase}: cuda and cpu differ beyond {PARITY_TOL}: "
             f"updates {bad}, AUC {auc_diff}, mean validation probability "
             f"{float(p_diff.mean())}")
 
@@ -1099,14 +1283,15 @@ def make_sparse_data(np, rows: int):
 
 def sparse_estimator(device: str, optimizer: str = "LBFGS",
                      iterations: int = SPARSE_ITERATIONS, streaming=None,
-                     hybrid=False):
+                     hybrid=False, feature_dtype: str = "float32"):
     """GameEstimator with one sparse fixed effect "ctr", as
     examples/sparse_criteo_style.py builds it, on the ELL layout
     (hybrid=False, the sparse and streamed cells: ell_scatter then gets
     config 5's full 9.5M rows) or, with ``hybrid=None``, the default
     layout, which on one device is the hybrid hot/cold one (the hybrid
     cells); with ``streaming`` (a StreamingConfig) the row-streamed
-    coordinate instead."""
+    coordinate instead. ``feature_dtype`` "bfloat16" stores the hybrid
+    hot block in bfloat16 (the ELL layout ignores it)."""
     from photon_ml_torch.api.configs import (CoordinateConfiguration,
                                              FixedEffectDataConfiguration)
     from photon_ml_torch.api.estimator import GameEstimator
@@ -1119,7 +1304,8 @@ def sparse_estimator(device: str, optimizer: str = "LBFGS",
     return GameEstimator(
         task=TaskType.LOGISTIC_REGRESSION,
         coordinates={"ctr": CoordinateConfiguration(
-            data=FixedEffectDataConfiguration("global", hybrid=hybrid),
+            data=FixedEffectDataConfiguration(
+                "global", hybrid=hybrid, feature_dtype=feature_dtype),
             optimization=GLMOptimizationConfiguration(
                 optimizer=OptimizerConfig(
                     optimizer_type=OptimizerType(optimizer),
@@ -1154,40 +1340,10 @@ def check_sparse_fit(torch, result, label: str) -> dict:
             **record["solver"]}
 
 
-def old_route_fit(torch, ell_scatter, est, batch, train, val) -> dict:
-    """The L-BFGS fit again, on the same staged coordinate, with the ELL
-    objective's scatters sent the old way: the row terms r ⊗ values
-    (values²) formed whole, then scatter_rowterm over the ids' generic
-    layout. Its coefficients, AUC, solve time and peak memory."""
-    from photon_ml_torch.ops import sparse_aggregators as sagg
-
-    generic = ell_scatter.build_layout(batch.indices, batch.num_features)
-
-    def materialised(b, r, square=False):
-        v = b.values * b.values if square else b.values
-        return ell_scatter.scatter_rowterm(b.indices, r[:, None] * v,
-                                           b.num_features, layout=generic)
-
-    fused = sagg._rmatvec
-    sagg._rmatvec = materialised
-    torch.cuda.reset_peak_memory_stats()
-    ell_scatter.scatter_rowterm.launches = 0
-    try:
-        result, fit_s = timed_fit(torch, est, train, val, "cuda")
-    finally:
-        sagg._rmatvec = fused
-    out = {**check_sparse_fit(torch, result, "sparse_train, old route"),
-           "fit_seconds": fit_s,
-           "launches": ell_scatter.scatter_rowterm.launches,
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "means": result.model.models["ctr"].coefficients.means}
-    del generic
-    return out
-
-
 def phase_sparse_train(np, torch, card: str) -> dict:
     import copy
 
+    from photon_ml_torch.ops import sparse_aggregators as sagg
     from photon_ml_torch.ops.kernels import ell_scatter
 
     t0 = time.perf_counter()
@@ -1232,15 +1388,11 @@ def phase_sparse_train(np, torch, card: str) -> dict:
             f"for {tron['gradient_evaluations']} gradient evaluations and "
             f"{tron['hessian_vector_products']} H.v products, "
             f"scatter_rowterm {tron_generic} times")
-    old = old_route_fit(torch, ell_scatter, est, batch, train, val)
-    same = torch.equal(old["means"], result.model.models["ctr"]
-                       .coefficients.means) and old["auc"] == fit["auc"]
-    old["same_bits"] = same
-    del old["means"]
-    if not same:
-        raise AssertionError(
-            f"sparse_train: the old route's fit differs from ell_rmatvec's "
-            f"(AUC {old['auc']} against {fit['auc']})")
+    # One evaluation at the L-BFGS fit's final iterate: the ELL side of
+    # hybrid_bf16_train's layout comparison at the same 9.5M rows.
+    w = result.model.models["ctr"].coefficients.means
+    eval_ms = call_ms(torch, lambda: sagg.value_and_gradient(
+        coord.loss, w, batch), reps=5, inner=3)
     col_len = layout.col_ptr[1:] - layout.col_ptr[:-1]
     staged = {name: t.numel() * t.element_size() for name, t in (
         ("indices", batch.indices), ("values", batch.values),
@@ -1260,9 +1412,12 @@ def phase_sparse_train(np, torch, card: str) -> dict:
          max_memory_allocated=peak,
          tron={**tron, "fit_seconds": tron_s, "launches": tron_launches,
                "max_memory_allocated": tron_peak},
-         old_route=old)
+         ms_per_evaluation=eval_ms)
     return {"coord": coord, "model": result.model, "launches": launches,
-            "tron_launches": tron_launches, "train": train, "val": val}
+            "tron_launches": tron_launches, "train": train, "val": val,
+            "ell": {"rows": train.num_rows, "eval_ms": eval_ms,
+                    "auc": fit["auc"], "fit_seconds": fit_s,
+                    "lbfgs": fit}}
 
 
 # -- ell_scatter kernels ---------------------------------------------------
@@ -1681,9 +1836,9 @@ def phase_sparse_parity(np, torch, card: str) -> dict:
     With L2 every coefficient has one optimum, but 60 L-BFGS iterations
     do not reach it on this ill-conditioned problem (a column in every
     row, a tail of columns seen once), and where each run stops depends
-    on the last bits of every line search: the CPU's own fit over the
-    same rows in reverse order is reported beside the card's as that
-    spread. So every coefficient is held within PARITY_TOL over the
+    on the last bits of every line search (the CPU's own fit over the
+    same rows in reverse order parts from it by tenths; PERF.md).
+    So every coefficient is held within PARITY_TOL over the
     first PARITY_EARLY_ITERATIONS iterations, where the two paths have
     not parted; every objective evaluation of the card's full fit is
     replayed on the CPU from the same iterate and held within
@@ -1692,7 +1847,6 @@ def phase_sparse_parity(np, torch, card: str) -> dict:
     from photon_ml_torch.ops import sparse_aggregators as sagg
 
     train, val = make_sparse_data(np, SPARSE_PARITY_ROWS)
-    reverse = train.subset(np.arange(train.num_rows)[::-1].copy())
 
     def fit(device, data, iterations, log=None):
         est = sparse_estimator(device, iterations=iterations)
@@ -1711,19 +1865,14 @@ def phase_sparse_parity(np, torch, card: str) -> dict:
     log = EvaluationLog(sagg)
     full = {"cuda": fit("cuda", train, SPARSE_ITERATIONS, log),
             "cpu": fit("cpu", train, SPARSE_ITERATIONS)}
-    full["cpu, rows reversed"] = fit("cpu", reverse, SPARSE_ITERATIONS)
     replay = replay_on_cpu(torch, full["cpu"][4], log.calls)
     early_diff = float((early["cuda"][0] - early["cpu"][0]).abs().max())
     auc_diff = abs(full["cuda"][1] - full["cpu"][1])
     emit("sparse_parity", card=card, rows=train.num_rows,
          early_iterations=PARITY_EARLY_ITERATIONS,
          early_coefficient_max_diff=early_diff,
-         full_coefficient_max_diff={
-             "cuda vs cpu": float((full["cuda"][0]
-                                   - full["cpu"][0]).abs().max()),
-             "cpu vs cpu, rows reversed": float(
-                 (full["cpu"][0] - full["cpu, rows reversed"][0])
-                 .abs().max())},
+         full_coefficient_max_diff=float(
+             (full["cuda"][0] - full["cpu"][0]).abs().max()),
          replay=replay, auc_diff=auc_diff,
          auc={k: v[1] for k, v in full.items()},
          solver={k: v[2] for k, v in full.items()},
@@ -1769,7 +1918,9 @@ def stream_replay(torch, chunked, loss, w, offsets=None) -> tuple:
     """One value-and-gradient pass over the staged host chunks on the
     CPU (the port's plain path, chunk by chunk), with each gradient
     column's allowance: COLUMN_TOL · Σ_i |r_i · x_ic| plus REPLAY_ROW_ABS ·
-    Σ_i w_i · |x_ic| (the sparse_parity allowance; x dequantised)."""
+    Σ_i w_i · |x_ic| (the sparse_parity allowance; x dequantised), and
+    on a bfloat16 hot tier one bfloat16 step of r on the rows bf16_flip
+    marks."""
     import dataclasses
 
     from photon_ml_torch.ops import streaming_sparse as ss
@@ -1793,6 +1944,11 @@ def stream_replay(torch, chunked, loss, w, offsets=None) -> tuple:
                                         cold_vals=ch.cold_vals.abs())
         allowed += ss._chunk_rowterm_grad(
             magnitude, COLUMN_TOL * r.abs() + REPLAY_ROW_ABS * w_pos)
+        if ch.X_hot.dtype == torch.bfloat16:
+            # The hot tier reads r rounded to bfloat16 (bf16_flip).
+            allowed += ss._chunk_rowterm_grad(
+                dataclasses.replace(magnitude, cold_vals=torch.zeros_like(
+                    ch.cold_vals)), bf16_flip(torch, r, w_pos))
     return float(value), grad, allowed
 
 
@@ -1811,8 +1967,11 @@ def synced_seconds(torch, fn) -> tuple:
     return out, time.perf_counter() - t0
 
 
-def phase_stream_train(np, torch, card: str, train, val) -> dict:
-    """Config 5's 9.5M training rows, streamed in int8 through
+def phase_stream_train(np, torch, card: str, train, val,
+                       feature_dtype: str = "int8",
+                       phase: str = "stream_train") -> dict:
+    """Config 5's training rows (the first STREAM_ROWS, or what the caller
+    passes), streamed in ``feature_dtype`` chunks through
     GameEstimator(streaming=...)."""
     import resource
 
@@ -1821,7 +1980,7 @@ def phase_stream_train(np, torch, card: str, train, val) -> dict:
     from photon_ml_torch.ops.kernels import stream_fused as sf
 
     est = sparse_estimator("cuda", iterations=STREAM_ITERATIONS,
-                           streaming=stream_config("int8"))
+                           streaming=stream_config(feature_dtype))
     rss0 = host_rss_bytes()
     torch.cuda.reset_peak_memory_stats()
     sf.hot_margins.launches = 0  # the streamed path's run starts
@@ -1832,7 +1991,7 @@ def phase_stream_train(np, torch, card: str, train, val) -> dict:
                 "hot_rmatvec": sf.hot_rmatvec.launches,
                 "ell_scatter": ell_scatter.scatter_rowterm.launches}
     peak = torch.cuda.max_memory_allocated()
-    fit = check_sparse_fit(torch, result, "stream_train")
+    fit = check_sparse_fit(torch, result, phase)
     coord = est.coordinates["ctr"]
     stream, chunked = coord.stream, coord.chunked
     chunks = chunked.num_chunks
@@ -1844,11 +2003,11 @@ def phase_stream_train(np, torch, card: str, train, val) -> dict:
             fit["gradient_evaluations"] or passes["value"] != \
             fit["value_evaluations"] or passes["margins"] != 2:
         raise AssertionError(
-            f"stream_train: launches {launches}, expected {want} for "
+            f"{phase}: launches {launches}, expected {want} for "
             f"{chunks} chunks and passes {passes} (solver: {fit})")
     pass_bytes = sum(ss._chunk_nbytes(ch) for ch in chunked.chunks)
     if stream.bytes_moved != pass_bytes * sum(passes.values()):
-        raise AssertionError(f"stream_train: {stream.bytes_moved} bytes "
+        raise AssertionError(f"{phase}: {stream.bytes_moved} bytes "
                              f"moved for {passes} passes of {pass_bytes}")
     # At the final iterate: two value-and-gradient passes (same bits),
     # a value-only pass, and the CPU replay of the first.
@@ -1857,16 +2016,15 @@ def phase_stream_train(np, torch, card: str, train, val) -> dict:
     (v2, g2), _ = synced_seconds(torch, lambda: coord._vg(w))
     _, v_s = synced_seconds(torch, lambda: coord._v(w))
     if not (torch.equal(v1, v2) and torch.equal(g1, g2)):
-        raise AssertionError("stream_train: two value-and-gradient passes "
-                             "at the same iterate differ")
+        raise AssertionError(f"{phase}: two value-and-gradient passes at "
+                             "the same iterate differ")
     t0 = time.perf_counter()
     replay = replay_gaps(torch, v1, g1,
                          stream_replay(torch, chunked, coord.loss, w))
     replay_s = time.perf_counter() - t0
     if not (replay["value_rel_gap"] <= REPLAY_VALUE_RTOL
             and replay["gradient_column_ratio"] <= 1.0):
-        raise AssertionError(f"stream_train: the CPU replay differs: "
-                             f"{replay}")
+        raise AssertionError(f"{phase}: the CPU replay differs: {replay}")
     # The copy engine alone: one chunk's payload host→device.
     host = chunked.chunks[1]
     dev = {k: torch.empty_like(t, device="cuda")
@@ -1882,10 +2040,12 @@ def phase_stream_train(np, torch, card: str, train, val) -> dict:
         cold, chunked.dim), reps=5, inner=5)
     del dev, cold
     record = result.history.records[-1]
-    emit("stream_train", card=card, rows=train.num_rows,
+    emit(phase, card=card, rows=train.num_rows,
          val_rows=val.num_rows, dim=chunked.dim, chunks=chunks,
          chunk_rows=chunked.chunk_rows, num_hot=STREAM_NUM_HOT,
-         feature_dtype="int8",
+         feature_dtype=feature_dtype,
+         stored={"X_hot": str(chunked.chunks[0].X_hot.dtype),
+                 "cold_vals": str(chunked.chunks[0].cold_vals.dtype)},
          staging_seconds=coord.staging_seconds,
          pin_seconds=coord.pin_seconds, fit_seconds=fit_s,
          train_seconds=record["train_seconds"], lbfgs=fit, passes=passes,
@@ -1902,7 +2062,7 @@ def phase_stream_train(np, torch, card: str, train, val) -> dict:
                          "process_peak": resource.getrusage(
                              resource.RUSAGE_SELF).ru_maxrss * 1024})
     return {"coord": coord, "w": w, "launches": launches,
-            "passes": passes}
+            "passes": passes, "auc": fit["auc"]}
 
 
 # -- stream_fused kernels ---------------------------------------------------
@@ -2153,26 +2313,33 @@ def host_available_bytes() -> int:
     raise RuntimeError("/proc/meminfo has no MemAvailable line")
 
 
-def hybrid_reckoning(np, torch, train, rows: int) -> dict:
+def hybrid_reckoning(np, torch, train, rows: int,
+                     feature_dtype=None) -> dict:
     """What staging the first ``rows`` rows in the hybrid layout needs,
     from the column counts (the layout's own rule: hot at max(8,
-    rows/2048) entries, at most 4,096 columns; cold columns in
-    power-of-two classes), beside the card's and the host's memory."""
+    rows/2048) entries for a float32 block, max(8, rows/4096) for a
+    bfloat16 one, at most 4,096 columns; cold columns in power-of-two
+    classes), beside the card's and the host's memory."""
     from photon_ml_torch.ops import hybrid_sparse as hs
 
+    dtype = feature_dtype or torch.float32
     shard = train.feature_shards["global"]
     idx, val = shard.indices[:rows], shard.values[:rows]
     d = shard.num_features
     counts = np.bincount(idx[(idx < d) & (val != 0.0)], minlength=d)
     desc = np.sort(counts)[::-1]
-    k = int(min(4096, (counts >= hs._default_hot_threshold(rows)).sum()))
+    k = int(min(4096, (counts >= hs._default_hot_threshold(rows, dtype))
+                .sum()))
     cold = desc[k:][desc[k:] > 0]
     cls = np.ceil(np.log2(np.maximum(cold, 1))).astype(np.int64)
     kinds, per = np.unique(cls, return_counts=True)
-    k_pad = -(-k // hs.HOT_ALIGN) * hs.HOT_ALIGN
+    align = hs.hot_align(dtype)
+    k_pad = -(-k // align) * align
+    itemsize = torch.empty((), dtype=dtype).element_size()
     free, total = torch.cuda.mem_get_info()
     return {
-        "rows": rows, "num_hot": k, "hot_block_bytes": rows * k_pad * 4,
+        "rows": rows, "feature_dtype": str(dtype).replace("torch.", ""),
+        "num_hot": k, "hot_block_bytes": rows * k_pad * itemsize,
         "cold_classes": int(kinds.size),
         "cold_slots": int((per * (1 << kinds)).sum()),
         "cold_entries": int(cold.sum()), "live_entries": int(counts.sum()),
@@ -2180,7 +2347,7 @@ def hybrid_reckoning(np, torch, train, rows: int) -> dict:
         # ids, permuted columns, masks), about 16 bytes a slot; the card
         # holds the hot block beside the ELL fit's batch and layout.
         "host_staging_bytes": rows * SPARSE_NNZ * 16,
-        "device_bytes": rows * k_pad * 4 + rows * SPARSE_NNZ * 16,
+        "device_bytes": rows * k_pad * itemsize + rows * SPARSE_NNZ * 16,
         "card_free_bytes": free, "card_total_bytes": total,
         "host_available_bytes": host_available_bytes()}
 
@@ -2365,6 +2532,97 @@ def phase_hybrid_train(np, torch, card: str, train, val) -> dict:
             "hot_pass_checks": fused}
 
 
+def phase_hybrid_bf16_train(np, torch, card: str, train, val,
+                            ell: dict) -> dict:
+    """Config 5's one-device default layout in bfloat16 at full size: all
+    of sparse_train's training rows (9.5M) through GameEstimator.fit with
+    FixedEffectDataConfiguration(feature_dtype="bfloat16"), after a
+    reckoning that fails the phase where the block cannot fit; beside it
+    the ELL fit of the same rows (sparse_train's)."""
+    from photon_ml_torch.ops import hybrid_sparse as hs
+    from photon_ml_torch.ops.kernels import cold_grad as cg
+    from photon_ml_torch.ops.kernels import ell_scatter as es
+    from photon_ml_torch.ops.kernels import hot_pass as hp
+    from photon_ml_torch.ops.kernels import stream_fused as sf
+
+    t0 = time.perf_counter()
+    rows = train.num_rows
+    plan = hybrid_reckoning(np, torch, train, rows, torch.bfloat16)
+    emit("hybrid_bf16_reckoning", card=card, **plan,
+         seconds=time.perf_counter() - t0)
+    if plan["host_staging_bytes"] > plan["host_available_bytes"] \
+            or plan["device_bytes"] > plan["card_free_bytes"]:
+        raise AssertionError(
+            f"hybrid_bf16_train: {rows} rows need "
+            f"{plan['host_staging_bytes']} host and {plan['device_bytes']} "
+            f"card bytes; {plan['host_available_bytes']} and "
+            f"{plan['card_free_bytes']} are free")
+    counters = {"hot_value_and_gradient": hp.hot_value_and_gradient,
+                "hot_hessian_vector": hp.hot_hessian_vector,
+                "hot_margins": sf.hot_margins, "hot_rmatvec": sf.hot_rmatvec,
+                "cold_grad": cg.cold_grad,
+                "ell_scatter": es.scatter_rowterm}
+    est = sparse_estimator("cuda", hybrid=None, feature_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():  # the bfloat16 hybrid path's run starts
+        fn.launches = 0
+    with StagingClock(torch, hs) as clock:
+        result, fit_s = timed_fit(torch, est, train, val, "cuda")
+    launches = {k: fn.launches for k, fn in counters.items()}  # ... ends
+    peak = torch.cuda.max_memory_allocated()
+    fit = check_sparse_fit(torch, result, "hybrid_bf16_train")
+    coord = est.coordinates["ctr"]
+    hb = coord.staged
+    evals = fit["gradient_evaluations"]
+    want = {"hot_value_and_gradient": evals, "hot_hessian_vector": 0,
+            "hot_margins": 2, "hot_rmatvec": 0, "cold_grad": evals,
+            "ell_scatter": evals + 2}
+    if not coord.hybrid or hb.X_hot.dtype != torch.bfloat16 \
+            or hb.num_hot != plan["num_hot"] or launches != want:
+        raise AssertionError(
+            f"hybrid_bf16_train: launches {launches}, expected {want} for "
+            f"{evals} evaluations (X_hot {hb.X_hot.dtype}, num_hot "
+            f"{hb.num_hot}, reckoned {plan['num_hot']})")
+    w = result.model.models["ctr"].coefficients.means
+    w_perm = hs.to_permuted_space(hb, w)
+    (v1, g1), _ = synced_seconds(
+        torch, lambda: hs.value_and_gradient(coord.loss, w_perm, hb))
+    (v2, g2), _ = synced_seconds(
+        torch, lambda: hs.value_and_gradient(coord.loss, w_perm, hb))
+    same_bits = bool(torch.equal(v1, v2) and torch.equal(g1, g2))
+    del g1, g2
+    v_perm = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=hb.num_features).astype(np.float32)).cuda()
+    fused = check_hot_pass(torch, hs, hp, coord.loss, hb, w_perm, v_perm)
+    eval_ms = call_ms(torch, lambda: hs.value_and_gradient(
+        coord.loss, w_perm, hb), reps=5, inner=3)
+    hot = fused_pass_times(torch, hs, sf, hp, coord.loss, hb,
+                           hot_pass_inputs(hs, hb, w_perm, v_perm))
+    emit("hybrid_bf16_train", card=card, rows=rows, val_rows=val.num_rows,
+         dim=hb.num_features, slots=SPARSE_NNZ, feature_dtype="bfloat16",
+         num_hot=hb.num_hot, hot_block_columns=int(hb.X_hot.shape[1]),
+         hot_block_bytes=hb.X_hot.numel() * hb.X_hot.element_size(),
+         cold_classes=len(hb.cold_rowids),
+         cold_slots=int(hb.cold_flat_rowids.numel()),
+         staging_seconds={
+             "total": coord.staging_seconds,
+             "host_layout": coord.staging_seconds
+             - sum(clock.seconds.values()), **clock.seconds},
+         fit_seconds=fit_s, lbfgs=fit, launches=launches,
+         max_memory_allocated=peak, two_passes_same_bits=same_bits,
+         ms_per_evaluation={"hybrid_bf16": eval_ms, "ell": ell["eval_ms"]},
+         auc={"hybrid_bf16": fit["auc"], "ell": ell["auc"]},
+         auc_diff=abs(fit["auc"] - ell["auc"]), ell=ell,
+         hot_pass_checks=fused, hot_block=hot)
+    if not same_bits:
+        raise AssertionError("hybrid_bf16_train: two value-and-gradient "
+                             "passes at the same iterate differ")
+    del coord, hb, est, result
+    return {"launches": launches, "rows": rows, "hot": hot,
+            "hot_pass_checks": fused, "eval_ms": eval_ms}
+
+
 def hot_pass_inputs(hs, hb, w_perm, v_perm) -> dict:
     """The hybrid block's hot_pass arguments at one iterate and direction
     (the cold margins computed as the objective computes them)."""
@@ -2375,28 +2633,80 @@ def hot_pass_inputs(hs, hb, w_perm, v_perm) -> dict:
             "labels": hb.labels, "weights": hb.weights}
 
 
-def exact_rmatvec(torch, X, r, block_rows: int = 262_144):
-    """float64 rᵀX and |r|ᵀ|X|, in blocks of rows (the float32 block is
-    too large for a float64 copy)."""
+def bf16_flip(torch, r, w_pos):
+    """(n,) the bfloat16 step of each r_i whose rounding to bfloat16 a
+    move of REPLAY_ROW_ABS · w_i (the row terms' own resolution, as
+    sparse_parity allows it) can change, else 0. Two computations of r
+    that agree to that resolution round it to the same bfloat16 value
+    except on these rows, where they may land one step apart."""
+    rb = r.to(torch.bfloat16).float()
+    top = torch.maximum(r.abs(), rb.abs())
+    step = torch.ldexp(torch.ones_like(r),
+                       torch.frexp(top).exponent - 8)
+    to_midpoint = step / 2 - (r - rb).abs()
+    near = (to_midpoint <= REPLAY_ROW_ABS * w_pos) & (top > 0) \
+        & torch.isfinite(r)
+    return torch.where(near, step, torch.zeros_like(r))
+
+
+def exact_rmatvec(torch, X, r, block_rows: int = 262_144, extra=None):
+    """float64 rᵀX and |r|ᵀ|X| (and extraᵀ|X|), in blocks of rows (the
+    block is too large for a float64 copy)."""
     exact = torch.zeros(X.shape[1], dtype=torch.float64, device=X.device)
     mag = torch.zeros_like(exact)
+    more = torch.zeros_like(exact)
     for i0 in range(0, X.shape[0], block_rows):
         Xd = X[i0:i0 + block_rows].double()
         rd = r[i0:i0 + block_rows].double()
         exact += rd @ Xd
-        mag += rd.abs() @ Xd.abs()
+        Xd = Xd.abs_()
+        mag += rd.abs() @ Xd
+        if extra is not None:
+            more += extra[i0:i0 + block_rows].double() @ Xd
         del Xd
-    return exact, mag
+    return exact, mag, more
+
+
+def blocked_plain(torch, hp, args: tuple, hessian: bool,
+                  block_rows: int):
+    """The plain version of hot_value_and_gradient (or, ``hessian``,
+    hot_hessian_vector) over row blocks of its (n, H) block, the hot
+    gradients of the blocks added in order: where the whole block's
+    float32 copy would not fit on the card."""
+    X = args[0]
+    n = X.shape[0]
+    rows_at = (3, 4, 5, 6, 7) if hessian else (2, 3, 4, 5)
+    g = None
+    for i0 in range(0, n, block_rows):
+        part = list(args)
+        part[0] = X[i0:i0 + block_rows]
+        for k in rows_at:
+            if part[k] is not None:
+                part[k] = part[k][i0:i0 + block_rows]
+        fn = (hp.hot_hessian_vector_reference if hessian
+              else hp.hot_value_and_gradient_reference)
+        out = fn(*part)[-1]
+        g = out if g is None else g + out
+    return g
 
 
 def check_hot_pass(torch, hs, hp, loss, hb, w_perm, v_perm) -> dict:
     """hot_pass on the hybrid block at one iterate and direction: z (and
     for H·v, xv) bit for bit the two-kernel route's (hybrid_sparse.margins
-    and margins(v) − offsets), the hybrid value bit for bit the value
-    from that route's margins, every g_hot column within COLUMN_TOL ·
-    Σ|terms| of its float64 sum, parity_rel within PARITY_REL against
-    the plain version, and the same bits on two launches."""
+    and margins(v) − offsets, through stream_fused.hot_margins), the
+    hybrid value bit for bit the value from that route's margins, every
+    g_hot column within COLUMN_TOL · Σ|terms| of its float64 sum,
+    parity_rel within PARITY_REL against the plain version, and the same
+    bits on two launches. Over a bfloat16 block the float64 sums take the
+    same rounded operands (w, v and r rounded to bfloat16), each column
+    also allowing one bfloat16 step of r on the rows where r lies within
+    its own resolution of a rounding midpoint (bf16_flip), and the plain
+    version runs over blocks of BF16_CHECK_ROWS rows."""
+    from photon_ml_torch.ops.kernels import stream_fused as sf
+
     a = hot_pass_inputs(hs, hb, w_perm, v_perm)
+    bf16 = a["X"].dtype == torch.bfloat16
+    block_rows = BF16_CHECK_ROWS if bf16 else 262_144
     vg = (a["X"], a["w_hot"], a["offsets"], a["cold_z"], a["labels"],
           a["weights"], loss)
     hv = (a["X"], a["w_hot"], a["v_hot"], a["offsets"], a["cold_z"],
@@ -2421,28 +2731,40 @@ def check_hot_pass(torch, hs, hp, loss, hb, w_perm, v_perm) -> dict:
             "two launches": torch.equal(g1, g2) and torch.equal(h1, h2)}
     del z1, z2, hz1, hz2, xv1, xv2, g2, h2, z_route, xv_route
     out = {"bits": bits}
+    w_pos = torch.where(hb.weights > 0, hb.weights,
+                        torch.zeros_like(hb.weights))
     for name, got, r, plain in (
             ("hot_value_and_gradient", g1, r_g,
              lambda: hp.hot_value_and_gradient_reference(*vg)[1]),
             ("hot_hessian_vector", h1, r_h,
              lambda: hp.hot_hessian_vector_reference(*hv)[2])):
-        exact, mag = exact_rmatvec(torch, a["X"], r)
-        want = plain()
+        flip = bf16_flip(torch, r, w_pos) if bf16 else None
+        exact, mag, more = exact_rmatvec(
+            torch, a["X"], sf.rounded_like(a["X"], r), block_rows, flip)
+        if bf16:
+            want = blocked_plain(torch, hp, vg if name.endswith("gradient")
+                                 else hv, name == "hot_hessian_vector",
+                                 block_rows)
+        else:
+            want = plain()
         err = float((got - want).abs().max())
         out[name] = {
             "column_ratio": column_ratio(torch, got.double(), exact,
-                                         COLUMN_TOL * mag),
+                                         COLUMN_TOL * mag + more),
             "max_abs_err": err,
             "parity_rel": err / max(float(want.abs().max()), 1e-9)}
-        del exact, mag, want
+        if bf16:
+            out[name]["flip_rows"] = int((flip > 0).sum())
+        del exact, mag, more, want
     if not all(bits.values()) or any(
             out[k]["column_ratio"] > 1.0 or out[k]["parity_rel"] > PARITY_REL
             for k in ("hot_value_and_gradient", "hot_hessian_vector")):
-        raise AssertionError(f"hybrid_train hot_pass: {out}")
+        raise AssertionError(f"hot_pass on the {a['X'].dtype} hybrid "
+                             f"block: {out}")
     return out
 
 
-def hot_pass_variant(hp, define: str):
+def hot_pass_variant(torch, hp, define: str):
     """csrc/hot_pass.cu built with ``define`` into the package's build
     directory, its C entry typed as the package's."""
     import ctypes
@@ -2455,7 +2777,8 @@ def hot_pass_variant(hp, define: str):
                     lib, os.path.join(_build.SRC_DIR, "hot_pass.cu")],
                    check=True, capture_output=True, text=True, timeout=300)
     fn = ctypes.CDLL(lib).hot_pass_f32
-    fn.argtypes, fn.restype = hp._launcher.argtypes, hp._launcher.restype
+    entry = hp._launchers[torch.float32]
+    fn.argtypes, fn.restype = entry.argtypes, entry.restype
     return fn
 
 
@@ -2482,17 +2805,125 @@ def raw_hot_pass(torch, hp, fn, a, loss, rows: int, stages: int):
     return z, g
 
 
+def fused_pass_times(torch, hs, sf, hp, loss, hb, a: dict) -> dict:
+    """The fused value-and-gradient pass and the fused H·v over the hot
+    block (``a``: hot_pass_inputs), each against the two- and
+    three-kernel routes they replace (old route, fused, fused, old route,
+    in turns), the plain versions and the library route, beside its
+    bound. The library route is torch.addmv and torch.mv on X.t() over a
+    float32 block; over a bfloat16 one torch.mm with a float32 output, w,
+    v and r rounded as the route rounds them, and the plain versions run
+    over row blocks (the block's float32 copy does not fit the card).
+    The library route's largest gap to the pass ("library_parity_rel")
+    is reported: over a bfloat16 block an r rounded from margins summed
+    in another order may land one bfloat16 step apart, which the kernel
+    check allows and this ratio does not."""
+    X, off, w_hot, v_hot = a["X"], a["offsets"], a["w_hot"], a["v_hot"]
+    cz, czv, wt = a["cold_z"], a["cold_zv"], a["weights"]
+    n, h = (int(x) for x in X.shape)
+    bf16 = X.dtype == torch.bfloat16
+    x_bytes = n * h * X.element_size()
+    if bf16:
+        def lib_margins(u):
+            return torch.mm(X, u.to(torch.bfloat16)[:, None],
+                            out_dtype=torch.float32)[:, 0] + off
+
+        def lib_rmatvec(t):
+            return torch.mm(t.to(torch.bfloat16)[None, :], X,
+                            out_dtype=torch.float32)[0]
+
+        lib_calls = ("torch.mm (float32 out)",
+                     "torch.mm (float32 out) on the transpose")
+    else:
+        def lib_margins(u):
+            return torch.addmv(off, X, u)
+
+        def lib_rmatvec(t):
+            return torch.mv(X.t(), t)
+
+        lib_calls = ("torch.addmv", "torch.mv on X.t()")
+
+    def gradient_route(margins_fn, rmatvec_fn):
+        z = hs._plus(margins_fn(w_hot), cz)
+        return rmatvec_fn(residual(torch, loss, z, hb))
+
+    def hv_route(margins_fn, rmatvec_fn):
+        z = hs._plus(margins_fn(w_hot), cz)
+        xv = hs._plus(margins_fn(v_hot), czv) - off
+        return rmatvec_fn(hs._masked(wt, loss.d2z(z, hb.labels)) * xv)
+
+    # The route rounds r to bfloat16 over a bfloat16 block.
+    kernels = (lambda u: sf.hot_margins(X, u, off),
+               lambda t: sf.hot_rmatvec(X, sf.rounded_like(X, t)))
+    library = (lib_margins, lib_rmatvec)
+    vg = (X, w_hot, off, cz, a["labels"], wt, loss)
+    hv = (X, w_hot, v_hot, off, cz, czv, a["labels"], wt, loss)
+    out = {}
+    # Bytes: X once and each (n,) and (H,) vector once (vg reads offsets,
+    # cold_z, labels, weights and w and writes z and g; H·v also reads
+    # cold_zv and v and writes xv); 4 n H (6 n H) float32 operations.
+    for name, fused, old, lib, vectors, ops, hessian in (
+            ("hot_value_and_gradient",
+             lambda: hp.hot_value_and_gradient(*vg),
+             lambda: gradient_route(*kernels),
+             lambda: gradient_route(*library), 5 * n + 2 * h, 4 * n * h,
+             False),
+            ("hot_hessian_vector", lambda: hp.hot_hessian_vector(*hv),
+             lambda: hv_route(*kernels), lambda: hv_route(*library),
+             7 * n + 3 * h, 6 * n * h, True)):
+        args = hv if hessian else vg
+        nbytes = x_bytes + vectors * 4
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_F32_FLOP_PER_S * 1e3
+        got, want = fused()[-1], lib()
+        parity = float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-9)
+        del got, want
+        old_ms = [device_ms(torch, old, reps=5, inner=3)]
+        fused_ms = [device_ms(torch, fused, reps=5, inner=3)
+                    for _ in range(2)]
+        old_ms.append(device_ms(torch, old, reps=5, inner=3))
+        if bf16:
+            plain_ms = 1e3 * synced_seconds(torch, lambda: blocked_plain(
+                torch, hp, args, hessian, BF16_CHECK_ROWS))[1]
+            plain_timing = (f"one call from Python, synchronised, over "
+                            f"blocks of {BF16_CHECK_ROWS} rows")
+        else:
+            plain = (hp.hot_hessian_vector_reference if hessian
+                     else hp.hot_value_and_gradient_reference)
+            plain_ms = device_ms(torch, lambda: plain(*args), reps=5,
+                                 inner=3)
+            plain_timing = "graph replay"
+        row = {"n": n, "H": h, "dtype": str(X.dtype).replace("torch.", ""),
+               "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "ms": min(fused_ms), "ms_runs": fused_ms,
+               "call_ms": call_ms(torch, fused, reps=5, inner=3),
+               "old_route_ms": min(old_ms), "old_route_runs": old_ms,
+               "old_route": ("hot_margins twice, the loss in torch, "
+                             "hot_rmatvec" if hessian else
+                             "hot_margins, the loss in torch, hot_rmatvec"),
+               "plain_ms": plain_ms, "plain_timing": plain_timing,
+               "library_ms": device_ms(torch, lib, reps=5, inner=3),
+               "library_call": (f"{lib_calls[0]} twice + {lib_calls[1]}"
+                                if hessian else
+                                f"{lib_calls[0]} + {lib_calls[1]}"),
+               "library_parity_rel": parity,
+               "ring": dict(zip(("rows", "stages"), hp.ring_shape(
+                   h, hessian, X.element_size())))}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        out[name] = row
+    return out
+
+
 def hot_block_times(torch, hs, sf, hp, loss, hb, w_perm, v_perm) -> dict:
     """The hybrid fit's float32 hot block at its final iterate: the fused
-    value-and-gradient pass and the fused H·v against the two- and
-    three-kernel routes they replace, their plain versions and the
-    library calls (torch.addmv, torch.mv on X.t()), each beside its
-    bound; hot_margins and hot_rmatvec alone against theirs; and, for
+    passes (fused_pass_times); hot_margins and hot_rmatvec alone against
+    torch.addmv and torch.mv on X.t(), each beside its bound; and, for
     what holds the pass back, the tile ring's depth against its time and
     the pass with its transposed product left out (a build of its own)."""
     a = hot_pass_inputs(hs, hb, w_perm, v_perm)
-    X, off, w_hot, v_hot = a["X"], a["offsets"], a["w_hot"], a["v_hot"]
-    cz, czv = a["cold_z"], a["cold_zv"]
+    X, off, w_hot = a["X"], a["offsets"], a["w_hot"]
     n, h = (int(x) for x in X.shape)
     x_bytes = n * h * 4
     r = residual(torch, loss, hs.margins(hb, w_perm), hb)
@@ -2518,61 +2949,7 @@ def hot_block_times(torch, hs, sf, hp, loss, hb, w_perm, v_perm) -> dict:
             raise AssertionError(f"hybrid_train {name}: parity_rel "
                                  f"{out[name]['parity_rel']} against "
                                  f"{out[name]['library_call']}")
-
-    def gradient_route(margins_fn, rmatvec_fn):
-        z = hs._plus(margins_fn(w_hot), cz)
-        return rmatvec_fn(residual(torch, loss, z, hb))
-
-    def hv_route(margins_fn, rmatvec_fn):
-        z = hs._plus(margins_fn(w_hot), cz)
-        xv = hs._plus(margins_fn(v_hot), czv) - off
-        return rmatvec_fn(hs._masked(hb.weights, loss.d2z(z, hb.labels))
-                          * xv)
-
-    kernels = (lambda u: sf.hot_margins(X, u, off),
-               lambda t: sf.hot_rmatvec(X, t))
-    library = (lambda u: torch.addmv(off, X, u), lambda t: torch.mv(X.t(), t))
-    vg = (X, w_hot, off, cz, a["labels"], a["weights"], loss)
-    hv = (X, w_hot, v_hot, off, cz, czv, a["labels"], a["weights"], loss)
-    # Bytes: X once and each (n,) and (H,) vector once (vg reads offsets,
-    # cold_z, labels, weights and w and writes z and g; H·v also reads
-    # cold_zv and v and writes xv); 4 n H (6 n H) float32 operations.
-    for name, fused, plain, old, lib, vectors, ops in (
-            ("hot_value_and_gradient",
-             lambda: hp.hot_value_and_gradient(*vg),
-             lambda: hp.hot_value_and_gradient_reference(*vg),
-             lambda: gradient_route(*kernels),
-             lambda: gradient_route(*library), 5 * n + 2 * h, 4 * n * h),
-            ("hot_hessian_vector", lambda: hp.hot_hessian_vector(*hv),
-             lambda: hp.hot_hessian_vector_reference(*hv),
-             lambda: hv_route(*kernels), lambda: hv_route(*library),
-             7 * n + 3 * h, 6 * n * h)):
-        nbytes = x_bytes + vectors * 4
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = ops / PEAK_F32_FLOP_PER_S * 1e3
-        row = {"n": n, "H": h, "bytes": nbytes,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        # In turns: old route, fused, fused, old route.
-        old_ms = [device_ms(torch, old, reps=5, inner=3)]
-        fused_ms = [device_ms(torch, fused, reps=5, inner=3)
-                    for _ in range(2)]
-        old_ms.append(device_ms(torch, old, reps=5, inner=3))
-        row.update({
-            "ms": min(fused_ms), "ms_runs": fused_ms,
-            "call_ms": call_ms(torch, fused, reps=5, inner=3),
-            "old_route_ms": min(old_ms), "old_route_runs": old_ms,
-            "old_route": ("hot_margins, the loss in torch, hot_rmatvec"
-                          if name == "hot_value_and_gradient" else
-                          "hot_margins twice, the loss in torch, "
-                          "hot_rmatvec"),
-            "plain_ms": device_ms(torch, plain, reps=5, inner=3),
-            "library_ms": device_ms(torch, lib, reps=5, inner=3),
-            "library_call": ("torch.addmv + torch.mv on X.t()"
-                             if name == "hot_value_and_gradient" else
-                             "torch.addmv twice + torch.mv on X.t()")})
-        row["bound_share"] = row["bound_ms"] / row["ms"]
-        out[name] = row
+    out.update(fused_pass_times(torch, hs, sf, hp, loss, hb, a))
 
     # What holds the pass back: the ring's depth, and the pass without
     # its transposed product (phase (c)), at this shape.
@@ -2581,12 +2958,14 @@ def hot_block_times(torch, hs, sf, hp, loss, hb, w_perm, v_perm) -> dict:
     for rows, stages in ((8, 2), (8, 3), (4, 2), (4, 4), (4, 6), (2, 8)):
         if hp.shared_bytes(h, rows, stages, False) <= hp.MAX_SHARED:
             ring[f"{rows}x{stages}"] = device_ms(
-                torch, lambda: raw_hot_pass(torch, hp, hp._launcher, a, loss,
-                                            rows, stages), reps=5, inner=3)
-    no_transpose = hot_pass_variant(hp, "HOT_PASS_TIMING_NO_TRANSPOSE")
+                torch, lambda: raw_hot_pass(
+                    torch, hp, hp._launchers[torch.float32], a, loss, rows,
+                    stages), reps=5, inner=3)
+    no_transpose = hot_pass_variant(torch, hp,
+                                    "HOT_PASS_TIMING_NO_TRANSPOSE")
     rows, stages = hp.ring_shape(h, False)
     out["hot_value_and_gradient"].update({
-        "ring": {"rows": rows, "stages": stages}, "ring_ms": ring,
+        "ring_ms": ring,
         "no_transpose_ms": device_ms(
             torch, lambda: raw_hot_pass(torch, hp, no_transpose, a, loss,
                                         rows, stages), reps=5, inner=3)})
@@ -2793,30 +3172,34 @@ def phase_cold_grad(np, torch, trained: dict) -> list[dict]:
 
 # -- hybrid_parity ---------------------------------------------------------
 
-def rowterm_gradient(hs, sf, hb, r):
-    """Σ_i r_i·x_i in permuted space: hot_rmatvec and every cold class."""
-    g_hot = sf.hot_rmatvec(hb.X_hot, r) if hb.num_hot else None
-    return hs._assemble_grad(hb, g_hot,
-                             hs._cold_grad(hb, r, hb.cold_flat_vals))
-
-
 def hybrid_replay(torch, hs, sf, coord, calls) -> dict:
     """Each recorded card evaluation of the hybrid fit computed again on
     the CPU coordinate's staged layout from the same permuted iterate:
     the value's relative gap and the worst gradient column against
-    COLUMN_TOL · Σ|r·x| + REPLAY_ROW_ABS · Σ w·|x|, in permuted space."""
+    COLUMN_TOL · Σ|r·x| + REPLAY_ROW_ABS · Σ w·|x|, in permuted space;
+    over a bfloat16 hot block each hot column also allows one bfloat16
+    step of r on the rows bf16_flip marks (the hot tier reads r rounded
+    to bfloat16)."""
     import dataclasses
 
     hb, loss = coord.staged, coord.loss
-    magnitude = dataclasses.replace(hb, X_hot=hb.X_hot.abs(),
+    # |X| once, in float32: the plain products would upcast a bfloat16
+    # block on every call.
+    magnitude = dataclasses.replace(hb, X_hot=hb.X_hot.abs().float(),
                                     cold_flat_vals=hb.cold_flat_vals.abs())
     value_gap, column = 0.0, 0.0
     for w, value, grad in calls:
         v_cpu, g_cpu = hs.value_and_gradient(loss, w, hb)
         r = residual(torch, loss, hs.margins(hb, w), hb)
         w_pos = torch.where(hb.weights > 0, hb.weights, torch.zeros_like(r))
-        allowed = rowterm_gradient(
-            hs, sf, magnitude, COLUMN_TOL * r.abs() + REPLAY_ROW_ABS * w_pos)
+        base = COLUMN_TOL * r.abs() + REPLAY_ROW_ABS * w_pos
+        hot_r = base
+        if hb.X_hot.dtype == torch.bfloat16:
+            hot_r = base + bf16_flip(torch, r, w_pos)
+        g_hot = sf.hot_rmatvec(magnitude.X_hot, hot_r) if hb.num_hot \
+            else None
+        allowed = hs._assemble_grad(
+            hb, g_hot, hs._cold_grad(hb, base, magnitude.cold_flat_vals))
         value_gap = max(value_gap, abs(float(value - v_cpu))
                         / abs(float(v_cpu)))
         column = max(column, column_ratio(torch, grad, g_cpu, allowed))
@@ -2824,12 +3207,16 @@ def hybrid_replay(torch, hs, sf, coord, calls) -> dict:
             "gradient_column_ratio": column}
 
 
-def phase_hybrid_parity(np, torch, card: str, parity: dict) -> dict:
-    """sparse_parity's 300,000 rows in the hybrid layout, on the card and
-    on the CPU: every coefficient within PARITY_TOL after
-    PARITY_EARLY_ITERATIONS iterations, every card evaluation of that fit
-    replayed on the CPU, and TRON_PARITY_ITERATIONS TRON iterations on the
-    card with launches equal to its evaluations and H·v products."""
+def phase_hybrid_parity(np, torch, card: str, parity: dict,
+                        feature_dtype: str = "float32",
+                        phase: str = "hybrid_parity") -> dict:
+    """sparse_parity's 300,000 rows in the hybrid layout (the hot block in
+    ``feature_dtype``), on the card and on the CPU: every coefficient
+    within PARITY_TOL after PARITY_EARLY_ITERATIONS iterations (in
+    bfloat16 plus one bfloat16 step of the largest coefficient, as
+    compare_update allows), every card evaluation of that fit replayed on
+    the CPU, and TRON_PARITY_ITERATIONS TRON iterations on the card with
+    launches equal to its evaluations and H·v products."""
     from photon_ml_torch.ops import hybrid_sparse as hs
     from photon_ml_torch.ops.kernels import cold_grad as cg
     from photon_ml_torch.ops.kernels import hot_pass as hp
@@ -2839,7 +3226,8 @@ def phase_hybrid_parity(np, torch, card: str, parity: dict) -> dict:
 
     def fit(device, optimizer="LBFGS",
             iterations=PARITY_EARLY_ITERATIONS):
-        est = sparse_estimator(device, optimizer, iterations, hybrid=None)
+        est = sparse_estimator(device, optimizer, iterations, hybrid=None,
+                               feature_dtype=feature_dtype)
         result, seconds = timed_fit(torch, est, train, val, device)
         return (result.model.models["ctr"].coefficients.means.cpu(),
                 result.evaluation.metrics["AUC"],
@@ -2852,6 +3240,11 @@ def phase_hybrid_parity(np, torch, card: str, parity: dict) -> dict:
     cpu = fit("cpu")
     replay = hybrid_replay(torch, hs, sf, cpu[4], log.calls)
     diff = float((cuda[0] - cpu[0]).abs().max())
+    # Under bfloat16 a coefficient may also differ by one bfloat16 step
+    # of the model's largest coefficient (compare_update).
+    limit = PARITY_TOL + (float(bf16_step(np, cuda[0].numpy(),
+                                          cpu[0].numpy())[0])
+                          if feature_dtype == "bfloat16" else 0.0)
     classes = len(cuda[4].staged.cold_rowids)
     counters = {"cold_grad": cg.cold_grad,
                 "hot_value_and_gradient": hp.hot_value_and_gradient,
@@ -2866,9 +3259,12 @@ def phase_hybrid_parity(np, torch, card: str, parity: dict) -> dict:
     products = tron[2]["hessian_vector_products"]
     want = {"cold_grad": evals + products, "hot_value_and_gradient": evals,
             "hot_hessian_vector": products, "hot_rmatvec": 0}
-    emit("hybrid_parity", card=card, rows=train.num_rows,
+    emit(phase, card=card, rows=train.num_rows,
+         feature_dtype=feature_dtype,
+         hot_block_dtype=str(cuda[4].staged.X_hot.dtype),
          num_hot=cuda[4].staged.num_hot, cold_classes=classes,
          iterations=PARITY_EARLY_ITERATIONS, coefficient_max_diff=diff,
+         coefficient_limit=limit,
          replay=replay, auc={"cuda": cuda[1], "cpu": cpu[1],
                              "cuda TRON": tron[1]},
          solver={"cuda": cuda[2], "cpu": cpu[2], "cuda TRON": tron[2]},
@@ -2876,19 +3272,19 @@ def phase_hybrid_parity(np, torch, card: str, parity: dict) -> dict:
          tron_launches=tron_launches, tolerance=PARITY_TOL)
     if replay["evaluations"] != cuda[2]["gradient_evaluations"]:
         raise AssertionError(
-            f"hybrid_parity: recorded {replay['evaluations']} card "
+            f"{phase}: recorded {replay['evaluations']} card "
             f"evaluations, the solver reports "
             f"{cuda[2]['gradient_evaluations']}")
     if tron_launches != want or products == 0 \
             or not bool(torch.isfinite(tron[0]).all()):
-        raise AssertionError(f"hybrid_parity TRON: launches {tron_launches},"
+        raise AssertionError(f"{phase} TRON: launches {tron_launches},"
                              f" expected {want} (solver: {tron[2]})")
-    if not (diff <= PARITY_TOL
+    if not (diff <= limit
             and replay["value_rel_gap"] <= REPLAY_VALUE_RTOL
             and replay["gradient_column_ratio"] <= 1.0):
         raise AssertionError(
-            f"hybrid_parity: coefficients after {PARITY_EARLY_ITERATIONS} "
-            f"iterations {diff} apart (limit {PARITY_TOL}); replay {replay}")
+            f"{phase}: coefficients after {PARITY_EARLY_ITERATIONS} "
+            f"iterations {diff} apart (limit {limit}); replay {replay}")
     return tron_launches
 
 
@@ -3287,21 +3683,20 @@ def phase_glm_train(np, torch, card: str) -> dict:
 
 # -- glm_gradient_step -------------------------------------------------------
 
-def phase_glm_gradient_step(np, torch, card: str) -> dict:
-    """BASELINE metric 1 (bench.py bench_gradient_step): the port's dense
-    value_and_gradient on a chain w ← w − 1e-9·g, samples per second from
-    the slope between STEP_SHORT and STEP_LONG steps."""
+def gradient_step_rates(np, torch, X, y, feature_dtype: str) -> dict:
+    """BASELINE metric 1 over X stored in ``feature_dtype``: the slope
+    between STEP_SHORT and STEP_LONG chained steps, one step on the card
+    alone and the host's enqueue of one, and the card's busy share."""
     from photon_ml_torch.data.batch import LabeledBatch
     from photon_ml_torch.ops import aggregators as agg
     from photon_ml_torch.ops import losses
 
-    t0 = time.perf_counter()
-    n, d = STEP_ROWS, STEP_DIM
-    rng = np.random.default_rng(0)
-    X = rng.normal(size=(n, d)).astype(np.float32)
-    y = rng.integers(0, 2, size=n).astype(np.float32)
-    batch = LabeledBatch.build(X, y, device="cuda")
-    del X
+    n, d = X.shape
+    batch = LabeledBatch.build(X, y, feature_dtype=feature_dtype,
+                               device="cuda")
+    itemsize = batch.features.element_size()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
 
     def run(steps: int) -> float:
         w = torch.zeros((d,), device="cuda")
@@ -3314,18 +3709,22 @@ def phase_glm_gradient_step(np, torch, card: str) -> dict:
             w = w - 1e-9 * g  # chain: the next step depends on this one
         end.record()
         end.synchronize()
-        if not bool(torch.isfinite(w).all()):
-            raise AssertionError("glm_gradient_step: non-finite w")
+        if not bool(torch.isfinite(w).all()) or w.dtype != torch.float32:
+            raise AssertionError(f"glm_gradient_step ({feature_dtype}): "
+                                 f"non-finite or {w.dtype} w")
         return start.elapsed_time(end) * 1e-3
 
     run(STEP_SHORT)  # warm-up
+    # What a step allocates beside X: its (n,) and (d,) vectors; a float32
+    # copy of X would be n·d·4 bytes.
+    step_extra_bytes = torch.cuda.max_memory_allocated() - base
     short = [run(STEP_SHORT) for _ in range(STEP_RUNS)]
     long = [run(STEP_LONG) for _ in range(STEP_RUNS)]
     dt = (min(long) - min(short)) / (STEP_LONG - STEP_SHORT)
     # X read twice (margins, then Xᵀr): the unfused bound; X read once: the
     # bound of a pass that forms both from one read.
-    two_read_ms = 2.0 * 4 * n * d / PEAK_BYTES_PER_S * 1e3
-    one_read_ms = 4.0 * n * d / PEAK_BYTES_PER_S * 1e3
+    two_read_ms = 2.0 * itemsize * n * d / PEAK_BYTES_PER_S * 1e3
+    one_read_ms = 1.0 * itemsize * n * d / PEAK_BYTES_PER_S * 1e3
     # One step on the card alone (a CUDA-graph replay) and the host's
     # time to enqueue one: the chain's step is the larger of the two.
     w0 = torch.zeros((d,), device="cuda")
@@ -3342,20 +3741,39 @@ def phase_glm_gradient_step(np, torch, card: str) -> dict:
     enqueue_ms = (time.perf_counter() - t_host) * 1e3 / STEP_SHORT
     torch.cuda.synchronize()
     profiled = busy_share(torch, lambda: [step() for _ in range(STEP_SHORT)])
-    out = {"n": n, "d": d, "dtype": "float32",
-           "samples_per_s": n / dt, "ms_per_step": dt * 1e3,
-           "short_runs_s": short, "long_runs_s": long,
-           "step_device_ms": step_device_ms,
-           "step_enqueue_ms": enqueue_ms,
-           "bound_ms": two_read_ms, "bound_share": two_read_ms / (dt * 1e3),
-           "device_bound_share": two_read_ms / step_device_ms,
-           "bound_samples_per_s": n / (two_read_ms * 1e-3),
-           "one_read_bound_ms": one_read_ms,
-           "bf16": "slice 6 item 2",
-           "profiled_steps": STEP_SHORT, **profiled,
-           "seconds": time.perf_counter() - t0}
-    emit("glm_gradient_step", card=card, **out)
     del batch
+    return {"n": n, "d": d, "dtype": feature_dtype,
+            "samples_per_s": n / dt, "ms_per_step": dt * 1e3,
+            "short_runs_s": short, "long_runs_s": long,
+            "step_device_ms": step_device_ms,
+            "step_enqueue_ms": enqueue_ms,
+            "bound_ms": two_read_ms, "bound_share": two_read_ms / (dt * 1e3),
+            "device_bound_share": two_read_ms / step_device_ms,
+            "bound_samples_per_s": n / (two_read_ms * 1e-3),
+            "one_read_bound_ms": one_read_ms,
+            "step_extra_bytes": step_extra_bytes,
+            "x_float32_copy_bytes": 4 * n * d,
+            "profiled_steps": STEP_SHORT, **profiled}
+
+
+def phase_glm_gradient_step(np, torch, card: str) -> dict:
+    """BASELINE metric 1 (bench.py bench_gradient_step): the port's dense
+    value_and_gradient on a chain w ← w − 1e-9·g, samples per second from
+    the slope between STEP_SHORT and STEP_LONG steps; float32, and its
+    bfloat16 variant (bench.py:227–231: the same X rounded to bfloat16)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(STEP_ROWS, STEP_DIM)).astype(np.float32)
+    y = rng.integers(0, 2, size=STEP_ROWS).astype(np.float32)
+    out = gradient_step_rates(np, torch, X, y, "float32")
+    bf16 = gradient_step_rates(np, torch, X, y, "bfloat16")
+    del X
+    emit("glm_gradient_step", card=card, **out, bf16=bf16,
+         seconds=time.perf_counter() - t0)
+    if bf16["step_extra_bytes"] >= bf16["x_float32_copy_bytes"]:
+        raise AssertionError(f"glm_gradient_step: a bfloat16 step allocates "
+                             f"{bf16['step_extra_bytes']} bytes, a float32 "
+                             f"copy of X")
     torch.cuda.empty_cache()
     return out
 
@@ -3395,24 +3813,34 @@ def main() -> int:
     re_checks = phase_re_rows(np, torch, trained)
     re_launches = {"gather": trained["gathers"],
                    "scatter": trained["scatters"]}
+    train4, val4 = trained.pop("train"), trained.pop("val")
+    f32_train = {k: trained[k] for k in ("aucs", "max_memory_allocated")}
     del trained
     torch.cuda.empty_cache()
-    phase_train_parity(np, torch, card)
+    phase_train_bf16(np, torch, card, train4, val4, f32_train)
+    del train4, val4
+    torch.cuda.empty_cache()
+    train4, val4 = make_train_data(np, PARITY_ROWS)
+    phase_train_parity(np, torch, card, train4, val4)
+    phase_train_parity(np, torch, card, train4, val4, "bfloat16",
+                       "train_bf16_parity", PARITY_EARLY_ITERATIONS)
+    del train4, val4
     sparse_trained = phase_sparse_train(np, torch, card)
     ell_checks, rmatvec_checks = phase_ell_scatter(np, torch,
                                                    sparse_trained)
     sparse_launches = {"lbfgs": sparse_trained["launches"],
                        "tron": sparse_trained["tron_launches"]}
     train5, val5 = sparse_trained["train"], sparse_trained["val"]
+    ell9 = sparse_trained["ell"]
     del sparse_trained
     torch.cuda.empty_cache()
-    stream_trained = phase_stream_train(np, torch, card, train5, val5)
+    stream_trained = phase_stream_train(
+        np, torch, card, train5.subset(slice(0, STREAM_ROWS)), val5)
     stream_checks = phase_stream_kernels(np, torch, stream_trained)
     stream_launches = stream_trained["launches"]
     del stream_trained
     torch.cuda.empty_cache()
     hybrid_trained = phase_hybrid_train(np, torch, card, train5, val5)
-    del train5, val5
     cold_checks = phase_cold_grad(np, torch, hybrid_trained)
     hybrid_launches = hybrid_trained["launches"]
     hybrid_ell_launches = hybrid_trained["ell_launches"]
@@ -3421,9 +3849,19 @@ def main() -> int:
     hot_pass_checks = hybrid_trained["hot_pass_checks"]
     del hybrid_trained
     torch.cuda.empty_cache()
+    hybrid_bf16 = phase_hybrid_bf16_train(np, torch, card, train5, val5,
+                                          ell9)
+    torch.cuda.empty_cache()
+    stream_bf16 = phase_stream_train(
+        np, torch, card, train5.subset(slice(0, STREAM_BF16_ROWS)), val5,
+        "bfloat16", "stream_bf16_train")
+    del stream_bf16["coord"], train5, val5
+    torch.cuda.empty_cache()
     parity = phase_sparse_parity(np, torch, card)
     phase_stream_parity(np, torch, card, parity)
     tron_hybrid_launches = phase_hybrid_parity(np, torch, card, parity)
+    tron_hybrid_bf16_launches = phase_hybrid_parity(
+        np, torch, card, parity, "bfloat16", "hybrid_bf16_parity")
     phase_glm_train(np, torch, card)
     phase_glm_gradient_step(np, torch, card)
 
@@ -3475,6 +3913,8 @@ def main() -> int:
         "replaces": "photon_ml_tpu/ops/kernels/ell_scatter.py:68",
         "launches": stream_launches["ell_scatter"],
         "hybrid_launches": hybrid_launches["ell_scatter"],
+        "hybrid_bf16_launches": hybrid_bf16["launches"]["ell_scatter"],
+        "stream_bf16_launches": stream_bf16["launches"]["ell_scatter"],
         "max_abs_err": max(c["max_abs_err"] for c in ell_checks),
         "parity_rel": max(c["parity_rel"] for c in ell_checks),
         "column_ratio": max(c["column_ratio"] for c in ell_checks),
@@ -3527,6 +3967,8 @@ def main() -> int:
             "replaces": f"photon_ml_tpu/ops/kernels/stream_fused.py:{line}",
             "launches": stream_launches[name],
             "hybrid_launches": hybrid_launches[name],
+            "stream_bf16_launches": stream_bf16["launches"][name],
+            "hybrid_bf16_launches": hybrid_bf16["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "parity_rel": max(c["parity_rel"] for c in mine),
             "term_ratio": max(c["term_ratio"] for c in mine),
@@ -3570,12 +4012,40 @@ def main() -> int:
                if k in t},
             "shape": (f"n={t['n']} H={t['H']} float32 (hybrid_train's hot "
                       f"block, {hybrid_rows} rows)")})
+    # The bfloat16 entry of the same pass: checked and timed at
+    # hybrid_bf16_train's 9.5M-row block; the H·v pass launches on
+    # hybrid_bf16_parity's TRON fit.
+    bf16_checks = hybrid_bf16["hot_pass_checks"]
+    for name, launches_on, label in (
+            ("hot_value_and_gradient", hybrid_bf16["launches"],
+             "hybrid_bf16_train's L-BFGS fit"),
+            ("hot_hessian_vector", tron_hybrid_bf16_launches,
+             "hybrid_bf16_parity's TRON fit")):
+        t = hybrid_bf16["hot"][name]
+        table.append({
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": "photon_ml_torch/csrc/hot_pass.cu",
+            "replaces": "photon_ml_tpu/ops/kernels/stream_fused.py:61",
+            "also_replaces": "photon_ml_tpu/ops/kernels/stream_fused.py:112",
+            "launches": launches_on[name], "launches_on": label,
+            "max_abs_err": bf16_checks[name]["max_abs_err"],
+            "parity_rel": bf16_checks[name]["parity_rel"],
+            "column_ratio": bf16_checks[name]["column_ratio"],
+            "bits": bf16_checks["bits"],
+            **{k: t[k] for k in (
+                "ms", "ms_runs", "call_ms", "plain_ms", "plain_timing",
+                "bound_ms", "bound_by", "bound_share", "library_ms",
+                "library_call", "old_route_ms", "old_route_runs",
+                "old_route", "ring")},
+            "shape": (f"n={t['n']} H={t['H']} bfloat16 (hybrid_bf16_train's "
+                      f"hot block, {hybrid_bf16['rows']} rows)")})
     main_cold = cold_checks[0]
     table.append({
         "name": "cold_grad", "route": "cuda",
         "source": "photon_ml_torch/csrc/cold_grad.cu",
         "replaces": "dev-scripts/exp_cold_gather.py:58",
         "launches": hybrid_launches["cold_grad"],
+        "hybrid_bf16_launches": hybrid_bf16["launches"]["cold_grad"],
         "max_abs_err": max(c["max_abs_err"] for c in cold_checks),
         "parity_rel": max(c["parity_rel"] for c in cold_checks),
         "column_ratio": max(c["column_ratio"] for c in cold_checks),

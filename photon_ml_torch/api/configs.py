@@ -47,7 +47,8 @@ class StreamingConfig:
     ``feature_dtype``: chunk storage dtype; None inherits the
     coordinate's ``FixedEffectDataConfiguration.feature_dtype``. "int8"
     (symmetric per-column codes, float32 accumulation) quarters the
-    host→device stream; "bfloat16" is not ported yet (slice 6).
+    host→device stream and "bfloat16" (the values rounded once, float32
+    accumulation) halves it.
     ``prefetch_depth``: device buffers of the stream (copies in flight
     beside the compute). ``pin_chunks``: leading chunks kept on the
     device. ``workers``: staging threads (None = host cores).
@@ -94,7 +95,11 @@ class FixedEffectDataConfiguration:
 
     ``feature_sharded`` (sparse shards only) shards the coefficient
     dimension over a model mesh axis: slice 9 of the port.
-    ``feature_dtype``: on-device feature storage; only float32 is ported.
+    ``feature_dtype``: on-device feature storage, "float32" or "bfloat16"
+    (half the bytes; products accumulate in float32): a dense shard's
+    staged batch, or the hybrid layout's hot block (the ELL layout
+    ignores it, as the reference's does); the default chunk dtype of a
+    streamed coordinate.
     ``hybrid`` (sparse shards only): the hot-dense / cold-class layout.
     ``None`` = automatic, which on one device is the hybrid layout, as in
     the reference (and the ELL layout under ``feature_sharded``, slice 9);
@@ -112,8 +117,9 @@ class RandomEffectDataConfiguration:
     """Reference: RandomEffectDataConfiguration (randomEffectType,
     featureShardId, active-data bounds, projector).
 
-    Only ``projector="NONE"`` (solve at the full shard dimension) with
-    float32 features is ported; the rest raises in the estimator."""
+    Only ``projector="NONE"`` (solve at the full shard dimension) is
+    ported; the rest raises in the estimator. ``feature_dtype``
+    "bfloat16" stores the bucket blocks in bfloat16."""
 
     random_effect_type: str
     feature_shard_id: str

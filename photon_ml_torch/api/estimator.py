@@ -36,7 +36,6 @@ from photon_ml_torch.api.configs import (CoordinateConfiguration,
                                          FactoredRandomEffectDataConfiguration,
                                          FixedEffectDataConfiguration,
                                          RandomEffectDataConfiguration)
-from photon_ml_torch.data.batch import check_feature_dtype
 from photon_ml_torch.data.game_data import GameDataset, SparseShard
 from photon_ml_torch.device import DeviceLike, resolve_device
 from photon_ml_torch.evaluation import evaluators as ev
@@ -210,12 +209,11 @@ class GameEstimator:
                         feature_dtype=data.feature_dtype,
                         device=self.device)
                     continue
-                check_feature_dtype(data.feature_dtype)
                 coords[cid] = FixedEffectCoordinate(
                     dataset, data.feature_shard_id, self.loss, opt,
                     norm=self.normalization.get(data.feature_shard_id,
                                                 NormalizationContext()),
-                    device=self.device)
+                    feature_dtype=data.feature_dtype, device=self.device)
             elif isinstance(data, RandomEffectDataConfiguration):
                 if data.projector.upper() == "RANDOM":
                     raise not_ported(

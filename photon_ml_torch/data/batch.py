@@ -8,6 +8,10 @@ struct of tensors, so the whole batch feeds one matrix product.
 A batch may carry a leading lane axis (features (..., n, d), the rest
 (..., n)): a random-effect bucket is one batch of (E_b, cap) examples.
 
+Feature storage is float32 or bfloat16 (``feature_dtype``); labels,
+weights and offsets stay float32, and every product accumulates in
+float32 (``ops/aggregators.py``).
+
 Padding: a padded row has ``weight == 0`` and every aggregator treats
 zero-weight rows as absent (masked with ``where``, not multiplied, so
 non-finite garbage in padding can never poison a sum).
@@ -16,19 +20,26 @@ non-finite garbage in padding can never poison a sum).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from photon_ml_torch import not_ported
-
 Tensor = torch.Tensor
 
+FEATURE_DTYPES = {None: None, "float32": torch.float32,
+                  torch.float32: torch.float32, "bfloat16": torch.bfloat16,
+                  torch.bfloat16: torch.bfloat16}
 
-def check_feature_dtype(feature_dtype) -> None:
-    if feature_dtype not in (None, "float32", torch.float32):
-        raise not_ported(f"feature_dtype {feature_dtype!r} (the port stores "
-                         "features in float32 only)", 6)
+
+def check_feature_dtype(feature_dtype) -> Optional[torch.dtype]:
+    """The storage dtype ``feature_dtype`` names (None: the batch's
+    ``dtype``); float32 and bfloat16 are the choices."""
+    try:
+        return FEATURE_DTYPES[feature_dtype]
+    except (KeyError, TypeError):
+        raise ValueError(f"unsupported feature_dtype {feature_dtype!r}; "
+                         "expected float32 or bfloat16") from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,16 +65,18 @@ class LabeledBatch:
               dtype=torch.float32, feature_dtype=None,
               device=None) -> "LabeledBatch":
         """Tensors from array-likes on ``device`` (default: where they
-        already are, the CPU for numpy). ``feature_dtype`` other than
-        float32 raises: bf16 storage is not ported yet."""
-        check_feature_dtype(feature_dtype)
+        already are, the CPU for numpy). ``feature_dtype`` (default:
+        ``dtype``) sets the features' storage only: bfloat16 rounds them
+        once, to nearest even; labels, weights and offsets keep
+        ``dtype``."""
+        feature_dtype = check_feature_dtype(feature_dtype) or dtype
 
-        def put(a):
+        def put(a, to=dtype):
             if isinstance(a, np.ndarray):
                 a = torch.from_numpy(np.ascontiguousarray(a))
-            return torch.as_tensor(a, dtype=dtype, device=device)
+            return torch.as_tensor(a, dtype=dtype, device=device).to(to)
 
-        features = put(features)
+        features = put(features, feature_dtype)
         labels = put(labels)
         n = features.shape[-2]
         weights = (torch.ones((n,), dtype=dtype, device=features.device)

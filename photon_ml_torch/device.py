@@ -4,7 +4,9 @@ Entry points default to ``cuda``. Where CUDA is absent and the caller did
 not ask for the CPU, they raise: nothing drops silently to the CPU.
 
 The reference accumulates in float32, so TF32 stays off for matrix
-products and convolutions, and float32 matmul precision is ``"highest"``.
+products and convolutions, float32 matmul precision is ``"highest"``, and
+cuBLAS may not reduce the split-K partials of a bfloat16 product in
+bfloat16 (PyTorch allows it by default).
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ DeviceLike = Union[str, torch.device]
 
 
 def set_precision() -> None:
-    """Full float32 everywhere: no TF32 in cuBLAS or cuDNN."""
+    """Full float32 everywhere: no TF32 in cuBLAS or cuDNN, and no
+    bfloat16 reduction of a bfloat16 product's partial sums."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 

@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 
 from photon_ml_torch import not_ported
-from photon_ml_torch.data.batch import LabeledBatch
+from photon_ml_torch.data.batch import LabeledBatch, check_feature_dtype
 from photon_ml_torch.data.game_data import GameDataset
 from photon_ml_torch.device import DeviceLike, resolve_device
 from photon_ml_torch.game.models import FixedEffectModel
@@ -38,24 +38,31 @@ class FixedEffectCoordinate:
 
     The dataset stays host numpy; ``__init__`` stages its features,
     labels and weights on ``device`` once (``cuda`` unless the caller
-    passes ``"cpu"``).
+    passes ``"cpu"``), the features in ``feature_dtype`` (float32 or
+    bfloat16; see ``ops/aggregators.py`` for the float32-accumulation
+    contract).
     """
 
     def __init__(self, dataset: GameDataset, shard_id: str,
                  loss: PointwiseLoss, config: GLMOptimizationConfiguration,
                  norm: NormalizationContext = NormalizationContext(),
+                 feature_dtype: str = "float32",
                  device: Optional[DeviceLike] = None):
         self.device = resolve_device(device)
         self._check_config(config)
+        check_feature_dtype(feature_dtype)
         self.dataset = dataset
         self.shard_id = shard_id
         self.loss = loss
         self.config = config
         self.norm = norm.to(self.device)
         self.intercept_index = dataset.intercept_index.get(shard_id)
+        self.feature_dtype = feature_dtype
+        # Scoring reuses the staged features: no second copy of X.
         self._staged = LabeledBatch.build(
             dataset.feature_shards[shard_id], dataset.response,
-            dataset.weights, device=self.device)
+            dataset.weights, feature_dtype=feature_dtype,
+            device=self.device)
 
     @staticmethod
     def _check_config(config: GLMOptimizationConfiguration) -> None:

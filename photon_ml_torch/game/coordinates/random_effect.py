@@ -13,9 +13,14 @@ over the (E, d) coefficient table, where the reference runs ``vmap`` of
 its solver between the same two row moves. Padding lanes (row −1) solve
 on all-zero weights, and the scatter drops their results.
 
+Under ``feature_dtype="bfloat16"`` the waves' feature blocks are stored
+in bfloat16, cast after staging, as the reference casts its bucket
+blocks; the shard kept for scoring stays float32, as the reference's
+does. The solves accumulate in float32 (``ops/aggregators.py``).
+
 Not ported yet, each raising if asked for: the projected and subspace
-paths, sparse shards, the staging cache, bf16 features, gated sweeps,
-Gram fits and factored warm starts.
+paths, sparse shards, the staging cache, gated sweeps (and with them
+the segment rescore), Gram fits and factored warm starts.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ ENTITY_PAD_MULTIPLE = 8
 class _Wave:
     """One wave's staged tensors: lanes (B,) of one bucket, cap rows each."""
 
-    X: Tensor  # (B, cap, d) features
+    X: Tensor  # (B, cap, d) features, float32 or bfloat16
     y: Tensor  # (B, cap) labels
     w: Tensor  # (B, cap) weights, 0 on padding slots
     ex: Tensor  # (B, cap) int64 example rows, padding slots read row 0
@@ -91,7 +96,7 @@ class RandomEffectCoordinate:
                  feature_dtype: str = "float32",
                  device: Optional[DeviceLike] = None):
         self.device = resolve_device(device)
-        check_feature_dtype(feature_dtype)
+        block_dtype = check_feature_dtype(feature_dtype) or torch.float32
         shard = dataset.feature_shards[shard_id]
         if isinstance(shard, SparseShard):
             raise not_ported("a sparse random-effect shard", 6)
@@ -132,7 +137,7 @@ class RandomEffectCoordinate:
                 wb = wts[ex]
                 wb[put(ex_host < 0, torch.bool)] = 0.0
                 self._waves.append(_Wave(
-                    X=self._X[ex], y=y[ex], w=wb, ex=ex,
+                    X=self._X[ex].to(block_dtype), y=y[ex], w=wb, ex=ex,
                     rows=put(b.entity_rows[lo:hi], torch.int32)))
 
     @property

@@ -15,9 +15,12 @@ Two layouts, as in the reference:
   gradient, H·v and Hessian diagonal through the ``ell_scatter``
   kernel's fused route ``ell_rmatvec`` on a CUDA device.
 
+``feature_dtype="bfloat16"`` stores the hybrid hot block in bfloat16
+(``ops/hybrid_sparse.py``); the ELL layout ignores it, as the
+reference's does.
+
 Not ported yet, each raising if asked for: ``feature_sharded=True`` and
-the data-sharded hybrid layout are slice 9; down-sampling and bf16
-feature storage are slice 6.
+the data-sharded hybrid layout are slice 9; down-sampling is slice 6.
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ class SparseFixedEffectCoordinate:
                     "space replicated on every shard)")
         if feature_sharded:
             raise not_ported("feature_sharded=True", 9)
-        check_feature_dtype(feature_dtype)
+        block_dtype = check_feature_dtype(feature_dtype)
         self._check_config(config)
         self.device = resolve_device(device)
         self.dataset = dataset
@@ -111,8 +114,9 @@ class SparseFixedEffectCoordinate:
             num_features=self._dim)
         self._ii_perm: Optional[int] = None
         if self.hybrid:
-            self._staged = hybrid_sparse.build_hybrid(batch,
-                                                      device=self.device)
+            self._staged = hybrid_sparse.build_hybrid(
+                batch, feature_dtype=block_dtype or torch.float32,
+                device=self.device)
             if self.intercept_index is not None:
                 self._ii_perm = int(
                     self._staged.inv_perm[self.intercept_index])

@@ -18,8 +18,9 @@ scores) arrives as the ``offsets`` argument of ``train_model``, and
 Not supported on the streamed path (the reference raises too):
 normalization, down-sampling, SIMPLE/FULL variances. Not ported yet,
 each raising and naming the slice that ports it: the stochastic solvers
-``solver="sdca"|"sgd"`` (slice 7), meshes (slice 9), mid-fit checkpoints
-(``bind_step_checkpoint``, slice 6) and bfloat16 chunk storage (slice 6).
+``solver="sdca"|"sgd"`` (slice 7), meshes (slice 9) and mid-fit
+checkpoints (``bind_step_checkpoint``, slice 6). Chunks are stored in
+float32, bfloat16 or int8 (``ops/streaming_sparse.py``).
 """
 
 from __future__ import annotations
@@ -118,8 +119,6 @@ class StreamingSparseFixedEffectCoordinate:
                     "residual arrives as the ``offsets`` argument of "
                     "``train_model``, and ``score`` must return pure "
                     "wᵀx margins; staged offsets would be double-counted.")
-        if ss.chunk_dtype(chunked.chunks[0]) == "bfloat16":
-            raise not_ported("bfloat16 chunk storage", 6)
         self.solver = (solver or "lbfgs").lower()
         _validate_streaming_config(config, self.solver)
         self.device = resolve_device(device)

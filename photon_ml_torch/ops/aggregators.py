@@ -10,6 +10,14 @@ transposed product Xᵀr; normalization factors and shifts fold in
 algebraically (photon_ml_torch/normalization.py). The reference left
 these dense products to XLA; here they are ``torch.matmul`` calls.
 
+Under bfloat16 feature storage the small operand (w, v or r) is rounded
+to bfloat16 and each product accumulates and comes out in float32 (the
+reference's ``preferred_element_type=float32`` einsums): one cuBLAS call
+with a float32 output on a card, with no float32 copy of X, and the
+upcast product on the CPU. A product of two bfloat16 numbers is exact in
+float32, so the two agree to summation order. The variances upcast X to
+float32 first, as the reference does.
+
 Every function takes a leading lane axis, as the reference's ``...nd``
 einsums do under ``vmap``: features (..., n, d) with means (..., d). A
 flat (n, d) batch with (L, d) means broadcasts to L lanes over the same
@@ -33,15 +41,58 @@ Tensor = torch.Tensor
 _IDENTITY = NormalizationContext()
 
 
+def _bf16_product(a: Tensor, b: Tensor) -> Tensor:
+    """float32 (m, p) = a (m, k) @ b (k, p) for bfloat16 operands, each
+    product exact and the sums in float32: on a card one cuBLAS call
+    with a float32 output (no float32 copy of either operand), on the
+    CPU the plain version over upcast copies."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _bf16_batched(a: Tensor, b: Tensor) -> Tensor:
+    """:func:`_bf16_product` over a leading lane axis: (L, m, p)."""
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def _matvec(X: Tensor, w: Tensor) -> Tensor:
-    """(..., n) = X (..., n, d) @ w (..., d)."""
-    return torch.matmul(X, w.unsqueeze(-1)).squeeze(-1)
+    """(..., n) = X (..., n, d) @ w (..., d). Under bfloat16 storage w is
+    rounded to bfloat16 and the products accumulate in float32, as the
+    reference's ``preferred_element_type`` einsum does."""
+    if X.dtype != torch.bfloat16:
+        return torch.matmul(X, w.unsqueeze(-1)).squeeze(-1)
+    wb = w.to(torch.bfloat16)
+    if X.dim() == 2:
+        if wb.dim() == 1:
+            return _bf16_product(X, wb.unsqueeze(-1)).squeeze(-1)
+        # One shared X under (..., d) lanes: the lanes are columns.
+        lanes = wb.reshape(-1, wb.shape[-1])
+        out = _bf16_product(X, lanes.t()).t()
+        return out.reshape(*wb.shape[:-1], X.shape[0])
+    lead = X.shape[:-2]
+    Xf = X.reshape(-1, *X.shape[-2:])
+    wf = wb.expand(*lead, wb.shape[-1]).reshape(-1, wb.shape[-1], 1)
+    return _bf16_batched(Xf, wf).reshape(*lead, X.shape[-2])
 
 
 def _tmatvec(X: Tensor, r: Tensor) -> Tensor:
     """(..., d) = Xᵀ r: X (..., n, d), r (..., n) — the gradient
-    reduction."""
-    return torch.matmul(r.unsqueeze(-2), X).squeeze(-2)
+    reduction. Under bfloat16 storage r is rounded to bfloat16, as
+    in :func:`_matvec`."""
+    if X.dtype != torch.bfloat16:
+        return torch.matmul(r.unsqueeze(-2), X).squeeze(-2)
+    rb = r.to(torch.bfloat16)
+    if X.dim() == 2:
+        lanes = rb.reshape(-1, rb.shape[-1])
+        out = _bf16_product(lanes, X)
+        return out.reshape(*rb.shape[:-1], X.shape[-1])
+    lead = X.shape[:-2]
+    Xf = X.reshape(-1, *X.shape[-2:])
+    rf = rb.expand(*lead, rb.shape[-1]).reshape(-1, 1, rb.shape[-1])
+    return _bf16_batched(rf, Xf).reshape(*lead, X.shape[-1])
 
 
 def margins(batch: LabeledBatch, means: Tensor,
@@ -104,7 +155,9 @@ def hessian_diagonal(loss: PointwiseLoss, means: Tensor,
     z = margins(batch, means, norm)
     d2 = loss.d2z(z, batch.labels)
     r = _masked(batch.weights, d2)
-    X = batch.features
+    # A once-per-fit path: bfloat16 storage is upcast before the square
+    # (a bfloat16 square would round twice), as in the reference.
+    X = batch.features.to(torch.float32)
     x2 = _tmatvec(X * X, r)
     if norm.is_identity:
         return x2
@@ -125,7 +178,7 @@ def hessian_matrix(loss: PointwiseLoss, means: Tensor, batch: LabeledBatch,
     z = margins(batch, means, norm)
     d2 = loss.d2z(z, batch.labels)
     r = _masked(batch.weights, d2)
-    Xp = batch.features
+    Xp = batch.features.to(torch.float32)
     if norm.shifts is not None:
         Xp = Xp - norm.shifts
     if norm.factors is not None:

@@ -17,9 +17,19 @@ over a layout that splits the Zipf-distributed feature space in two:
 Staging (:func:`build_hybrid`) is the reference's host numpy, call for
 call, so ``perm``, ``inv_perm``, ``num_hot``, ``class_starts``, every
 class's arrays and the hot block equal the reference's bit for bit. The
-(n, k) float32 hot block is never built on the host (at 4.75M rows it
-is 34 GB): its entries are scattered straight into a zero tensor on the
-target device.
+(n, k) hot block is never built on the host (at 4.75M rows the float32
+block is 34 GB): its entries are scattered straight into a zero tensor
+of the storage dtype on the target device.
+
+**bfloat16 storage** (``feature_dtype=torch.bfloat16``, the reference's
+flagship dtype) stores the hot block in bfloat16, rounded once (to
+nearest even), with the reference's n/4096 threshold; the cold values
+stay float32, as in the reference. The routes round what the
+reference's ``_hot_matvec`` / ``_hot_rmatvec`` round and nothing else:
+the hot coefficients (w, and v for H·v) before the margins, and the
+residual r inside ``hot_pass`` before the transposed product; every
+product then accumulates in float32. The Hessian diagonal squares the
+block in float32, row block by row block, with r unrounded.
 
 Where the reference leaves the work to XLA, the port runs its kernels on
 a card, and their plain versions on CPU tensors:
@@ -30,9 +40,10 @@ a card, and their plain versions on CPU tensors:
   ``hot_pass.hot_hessian_vector``, and the margins alone (the descent's
   scoring) through ``stream_fused.hot_margins`` (``base`` = the offsets).
   The cold margins are computed first and enter the pass. The block is
-  stored with its columns padded by zero columns to a multiple of
-  ``HOT_ALIGN`` (and ``w`` with zeros), so every row starts on 16 bytes
-  and the kernels take their vector loads and bulk copies;
+  stored with its columns padded by zero columns to a multiple of 16
+  bytes (:func:`hot_align` columns; ``w`` padded with zeros), so every
+  row starts on 16 bytes and the kernels take their vector loads and
+  bulk copies;
 - the cold margins' scatter ``zeros(n+1).at[rowids].add(products)``
   through ``ell_scatter`` over a column layout of the flat cold row ids
   with dim = n, built once per staged batch (padding id n ≥ dim adds
@@ -51,8 +62,7 @@ exists.
 
 Not ported: ``HybridShards``, ``build_hybrid_shards`` and ``local_shard``
 (the data-sharded composition; slice 9, reached only through a mesh,
-which the port does not have yet), and bfloat16 hot blocks (slice 6; the
-coordinate refuses them).
+which the port does not have yet).
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_ml_torch.data.batch import check_feature_dtype
 from photon_ml_torch.data.sparse import SparseBatch
 from photon_ml_torch.ops.kernels import (cold_grad, ell_scatter, hot_pass,
                                          stream_fused)
@@ -72,9 +83,11 @@ from photon_ml_torch.ops.losses import PointwiseLoss
 
 Tensor = torch.Tensor
 
-# The hot block's stored width is a multiple of this many float32 columns
-# (16 bytes), the zero columns past num_hot inert in every product.
-HOT_ALIGN = 4
+# The hot block's rows are a multiple of 16 bytes long: HOT_ALIGN float32
+# columns (hot_align(torch.bfloat16) bfloat16 ones), the zero columns past
+# num_hot inert in every product.
+HOT_ALIGN_BYTES = 16
+HOT_ALIGN = HOT_ALIGN_BYTES // 4
 # Rows per block of the Hessian diagonal's hot term.
 DIAG_BLOCK_ROWS = 262_144
 
@@ -90,18 +103,18 @@ class HybridSparseBatch:
     ops here live in the permuted space.
 
     ``X_hot`` holds ``num_hot`` columns and zero columns up to a multiple
-    of ``HOT_ALIGN``. ``cold_flat_rowids`` and ``cold_flat_vals`` are
-    every class's row ids and values in class order, flat, where
-    ``cold_table`` says each class lies; ``cold_rowids`` and ``cold_vals``
-    are each class's (C, L) views into them, so the cold tier is held
-    once.
+    of :func:`hot_align` of its dtype. ``cold_flat_rowids`` and
+    ``cold_flat_vals`` are every class's row ids and values in class
+    order, flat, where ``cold_table`` says each class lies;
+    ``cold_rowids`` and ``cold_vals`` are each class's (C, L) views into
+    them, so the cold tier is held once.
     ``cold_layout`` is the flat row ids' column layout over dim = n, which
     the ``ell_scatter`` kernel reads; :meth:`to` builds it on a CUDA
     device. ``dataclasses.replace`` of the labels, weights or offsets
     keeps all of them.
     """
 
-    X_hot: Tensor  # (n, k_pad) float32
+    X_hot: Tensor  # (n, k_pad) float32 or bfloat16
     labels: Tensor  # (n,)
     weights: Tensor  # (n,)
     offsets: Tensor  # (n,)
@@ -166,31 +179,42 @@ def _cold_layout(flat_rowids: Tensor, n: int,
     return ell_scatter.build_layout(flat_rowids.view(-1, 1), n)
 
 
-def _default_hot_threshold(n: int) -> int:
-    """The reference's float32 hot/cold split point, max(8, n/2048): the
-    dense block's bytes make fewer columns worth densifying. (Its
-    bfloat16 blocks use n/4096; the port stores float32 only.)"""
-    return max(8, n // 2048)
+def hot_align(dtype: torch.dtype) -> int:
+    """Columns of ``dtype`` in 16 bytes: the hot block's width is a
+    multiple of this."""
+    return HOT_ALIGN_BYTES // torch.empty((), dtype=dtype).element_size()
+
+
+def _default_hot_threshold(n: int, feature_dtype=torch.float32) -> int:
+    """The reference's dtype-aware hot/cold split point: max(8, n/2048)
+    for a float32 block, max(8, n/4096) for a bfloat16 one (half the
+    bytes a column, so more columns are worth densifying)."""
+    bf16 = check_feature_dtype(feature_dtype) == torch.bfloat16
+    return max(8, n // (4096 if bf16 else 2048))
 
 
 def build_hybrid(batch: SparseBatch, hot_threshold: Optional[int] = None,
-                 max_hot: int = 4096, device=None) -> HybridSparseBatch:
+                 max_hot: int = 4096, feature_dtype=torch.float32,
+                 device=None) -> HybridSparseBatch:
     """Stage an ELL SparseBatch into the hybrid layout on ``device`` (the
     batch's own by default), once.
 
     ``hot_threshold``: columns with at least this many nonzeros densify
-    (default :func:`_default_hot_threshold`). ``max_hot`` caps the dense
-    block's width. The permutation and the cold classes are the
-    reference's host numpy; the hot entries are scattered into the block
-    on ``device``.
+    (default :func:`_default_hot_threshold` of ``feature_dtype``).
+    ``max_hot`` caps the dense block's width. ``feature_dtype``
+    (float32 or bfloat16, a torch dtype or its name) is the hot block's
+    storage. The permutation and the cold classes are the reference's
+    host numpy; the hot entries are scattered into the block on
+    ``device``.
     """
+    feature_dtype = check_feature_dtype(feature_dtype) or torch.float32
     device = torch.device(device) if device is not None else batch.device
     indices = batch.indices.cpu().numpy()
     values = batch.values.cpu().numpy()
     n, slots = indices.shape
     d = int(batch.num_features)
     if hot_threshold is None:
-        hot_threshold = _default_hot_threshold(n)
+        hot_threshold = _default_hot_threshold(n, feature_dtype)
 
     flat_col = indices.reshape(-1)
     flat_row = np.repeat(np.arange(n, dtype=np.int32), slots)
@@ -208,7 +232,7 @@ def build_hybrid(batch: SparseBatch, hot_threshold: Optional[int] = None,
     new_col = inv_perm[np.minimum(flat_col, d - 1)]
     hot_sel = live & (new_col < k)
     X_hot = _fill_hot(hot_sel.reshape(n, slots), new_col.reshape(n, slots),
-                      values, k, device)
+                      values, k, device, feature_dtype)
     del hot_sel
 
     # Cold entries, column-contiguous in permuted order.
@@ -276,23 +300,34 @@ def build_hybrid(batch: SparseBatch, hot_threshold: Optional[int] = None,
 
 
 def _fill_hot(hot: np.ndarray, new_col: np.ndarray, values: np.ndarray,
-              k: int, device: torch.device) -> Tensor:
-    """The (n, k_pad) float32 hot block on ``device``: zeros, then the hot
-    entries ``hot`` (n, slots) at (row, ``new_col``), one slot at a time.
-    Within a slot every row appears once, so each copy is deterministic,
-    and a later slot overwrites an earlier one, as the reference's
-    single numpy assignment does where a row repeats a column."""
+              k: int, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> Tensor:
+    """The (n, k_pad) hot block of ``dtype`` on ``device``: zeros, then the
+    hot entries ``hot`` (n, slots) at (row, ``new_col``), one slot at a
+    time, each value rounded to ``dtype`` once (to nearest even). Within a
+    slot every row appears once, so each copy is deterministic, and a
+    later slot overwrites an earlier one, as the reference's single numpy
+    assignment does where a row repeats a column; a bfloat16 block so
+    holds the bits of the reference's float32 block cast to bfloat16,
+    without a float32 block of its own."""
     n, slots = hot.shape
-    k_pad = -(-k // HOT_ALIGN) * HOT_ALIGN
-    X = torch.zeros((n, k_pad), dtype=torch.float32, device=device)
+    align = hot_align(dtype)
+    k_pad = -(-k // align) * align
+    X = torch.zeros((n, k_pad), dtype=dtype, device=device)
+    if not k:
+        return X
     flat = X.view(-1)
-    for s in range(slots if k else 0):
-        rows = np.flatnonzero(hot[:, s])
-        if rows.size == 0:
+    # The slot arrays go to the device once; each slot's rows, positions
+    # and values are picked there.
+    hot_t = torch.from_numpy(hot).to(device)
+    col_t = torch.from_numpy(new_col).to(device)
+    val_t = torch.from_numpy(values).to(device)
+    for s in range(slots):
+        rows = torch.nonzero(hot_t[:, s]).squeeze(1)
+        if rows.numel() == 0:
             continue
-        pos = rows * k_pad + new_col[rows, s]
-        flat.index_copy_(0, torch.from_numpy(pos).to(device),
-                         torch.from_numpy(values[rows, s]).to(device))
+        pos = rows * k_pad + col_t[rows, s].to(torch.int64)
+        flat.index_copy_(0, pos, val_t[rows, s].to(dtype))
     return X
 
 
@@ -307,10 +342,13 @@ def to_original_space(hb: HybridSparseBatch, w_perm: Tensor) -> Tensor:
 
 
 def _hot_weights(hb: HybridSparseBatch, w_perm: Tensor) -> Tensor:
-    """The hot block's (k_pad,) coefficients: w_perm's first num_hot,
-    then zeros for the padding columns."""
+    """The hot block's (k_pad,) float32 coefficients: w_perm's first
+    num_hot, then zeros for the padding columns; rounded to bfloat16
+    over a bfloat16 block, as the reference's ``_hot_matvec`` rounds
+    them."""
     pad = hb.X_hot.shape[1] - hb.num_hot
-    return torch.cat([w_perm[:hb.num_hot], w_perm.new_zeros(pad)])
+    return stream_fused.rounded_like(
+        hb.X_hot, torch.cat([w_perm[:hb.num_hot], w_perm.new_zeros(pad)]))
 
 
 def _cold_products(hb: HybridSparseBatch, w_perm: Tensor,
@@ -434,7 +472,8 @@ def hessian_diagonal(loss: PointwiseLoss, w_perm: Tensor,
                      block_rows: int = DIAG_BLOCK_ROWS) -> Tensor:
     """diag(H) = Σ w·d2l·x² in permuted space (SIMPLE variances). The hot
     term ``r @ X_hot²`` is summed over blocks of ``block_rows`` rows, in
-    block order."""
+    block order, each block squared in float32 (a bfloat16 square would
+    round twice) and r unrounded, as in the reference."""
     z = margins(hb, w_perm)
     d2 = loss.d2z(z, hb.labels)
     r = _masked(hb.weights, d2)
@@ -443,7 +482,7 @@ def hessian_diagonal(loss: PointwiseLoss, w_perm: Tensor,
         g_hot = torch.zeros(hb.X_hot.shape[1], dtype=torch.float32,
                             device=hb.device)
         for i0 in range(0, hb.num_rows, block_rows):
-            block = hb.X_hot[i0:i0 + block_rows]
+            block = hb.X_hot[i0:i0 + block_rows].to(torch.float32)
             g_hot = g_hot + stream_fused.hot_rmatvec(
                 block * block, r[i0:i0 + block_rows])
     return _assemble_grad(

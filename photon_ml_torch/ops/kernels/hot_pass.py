@@ -1,4 +1,4 @@
-"""One pass over the hybrid layout's float32 hot block per evaluation.
+"""One pass over the hybrid layout's hot block per evaluation.
 
 The hybrid objective (``ops/hybrid_sparse.py``) reads its dense (n, H)
 hot block for the margins and again for the gradient. Row i's residual
@@ -7,11 +7,18 @@ depends only on row i's margin, so one pass can do both:
     hot_value_and_gradient:
         z    = (f32(X_hot) · w_hot + offsets) + cold_z
         r    = where(weights > 0, weights · dl(z, y), 0)
-        g    = f32(X_hot)ᵀ · r
+        g    = f32(X_hot)ᵀ · ρ(r)
     hot_hessian_vector (TRON's H·v), besides z:
         xv   = ((f32(X_hot) · v_hot + offsets) + cold_zv) − offsets
         r    = where(weights > 0, weights · d2(z, y), 0) · xv
-        g    = f32(X_hot)ᵀ · r
+        g    = f32(X_hot)ᵀ · ρ(r)
+
+X_hot is float32 or bfloat16. ρ is the identity over a float32 block and
+the rounding to bfloat16 (to nearest even) over a bfloat16 one: the
+reference's ``_hot_rmatvec`` rounds r so, and each product of two
+bfloat16 numbers is then exact in float32. ``w_hot`` and ``v_hot`` come
+already rounded from the route (``hybrid_sparse._hot_weights``); the
+pass takes float32 vectors only.
 
 ``cold_z`` / ``cold_zv`` are the cold classes' margins (None without
 cold classes). Each is written as ``hybrid_sparse`` wrote it with two
@@ -29,8 +36,9 @@ rounding.
 
 The wrappers take CPU tensors to the plain versions and CUDA tensors to
 the kernel, or raise. There is no fallback from one to the other. X_hot
-is float32 with a width that is a multiple of 4 (the hybrid block's
-``HOT_ALIGN``); the loss is one of ``LOSSES``, chosen by its name.
+is float32 or bfloat16 with rows a multiple of 16 bytes long (4 or 8
+columns: the hybrid block's ``hot_align``); the loss is one of
+``LOSSES``, chosen by its name.
 """
 
 from __future__ import annotations
@@ -50,31 +58,40 @@ NAME = "hot_pass"
 # The kernel's loss policies, by id.
 LOSSES = ("logistic", "squared", "poisson", "smoothed_hinge")
 # csrc/hot_pass.cu: rows a partial row of g covers (kGroup), the widest
-# block (4 · kThreads · kMaxVec columns), tile rows (kMaxRows) and ring
-# depth (kMaxStages) at most, and the shared memory a block may hold.
+# block (8,192 columns of either dtype: each thread holds the sums of a few
+# 16-byte column vectors), tile rows (kMaxRows) and ring depth
+# (kMaxStages) at most, and the shared memory a block may hold. Rows are a
+# multiple of ALIGN_BYTES long.
 ROW_GROUP = 512
-ALIGN = 4
+ALIGN_BYTES = 16
 MAX_COLUMNS = 8192
 MAX_ROWS = 8
 MAX_STAGES = 8
 MAX_SHARED = 232_448
 
 
-def shared_bytes(h: int, rows: int, stages: int, hessian: bool) -> int:
-    """The kernel's dynamic shared memory: the ring, w (and v), the tile's
-    residuals and one mbarrier a slot."""
-    return (stages * rows * h * 4 + (2 if hessian else 1) * h * 4
+# The block's element types, by the suffix of their C entry.
+ENTRIES = {torch.float32: "hot_pass_f32", torch.bfloat16: "hot_pass_bf16"}
+
+
+def shared_bytes(h: int, rows: int, stages: int, hessian: bool,
+                 itemsize: int = 4) -> int:
+    """The kernel's dynamic shared memory: the ring (rows of ``itemsize``
+    bytes an element), float32 w (and v), the tile's residuals and one
+    mbarrier a slot."""
+    return (stages * rows * h * itemsize + (2 if hessian else 1) * h * 4
             + MAX_ROWS * 4 + stages * 8)
 
 
-def ring_shape(h: int, hessian: bool) -> tuple[int, int]:
-    """(rows a tile, tiles in the ring) for an (n, h) block: the most
-    rows, up to one a warp, that leave room for two tiles, then as many
-    tiles as fit. At h = 1,772: 8 rows, 3 tiles."""
+def ring_shape(h: int, hessian: bool, itemsize: int = 4) -> tuple[int, int]:
+    """(rows a tile, tiles in the ring) for an (n, h) block of
+    ``itemsize``-byte elements: the most rows, up to one a warp, that
+    leave room for two tiles, then as many tiles as fit. At h = 1,772
+    float32: 8 rows, 3 tiles."""
     for rows in (8, 4, 2, 1):
         stages = MAX_STAGES
-        while stages >= 2 and shared_bytes(h, rows, stages,
-                                           hessian) > MAX_SHARED:
+        while stages >= 2 and shared_bytes(h, rows, stages, hessian,
+                                           itemsize) > MAX_SHARED:
             stages -= 1
         if stages >= 2:
             return rows, stages
@@ -99,7 +116,8 @@ def hot_value_and_gradient_reference(
     z = _plus(stream_fused.hot_margins_reference(X_hot, w_hot, offsets),
               cold_z)
     _, dl = loss.loss_and_dz(z, labels)
-    return z, stream_fused.hot_rmatvec_reference(X_hot, _masked(weights, dl))
+    return z, stream_fused.hot_rmatvec_reference(
+        X_hot, stream_fused.rounded_like(X_hot, _masked(weights, dl)))
 
 
 def hot_hessian_vector_reference(
@@ -113,18 +131,21 @@ def hot_hessian_vector_reference(
     xv = _plus(stream_fused.hot_margins_reference(X_hot, v_hot, offsets),
                cold_zv) - offsets
     r = _masked(weights, loss.d2z(z, labels)) * xv
-    return z, xv, stream_fused.hot_rmatvec_reference(X_hot, r)
+    return z, xv, stream_fused.hot_rmatvec_reference(
+        X_hot, stream_fused.rounded_like(X_hot, r))
 
 
 def _check(what: str, X_hot: Tensor, loss: PointwiseLoss, columns: dict,
            rows: dict) -> None:
-    if X_hot.dim() != 2 or X_hot.dtype != torch.float32:
-        raise ValueError(f"{what}: X_hot must be (n, H) float32, got "
-                         f"{X_hot.dtype} {tuple(X_hot.shape)}")
+    if X_hot.dim() != 2 or X_hot.dtype not in ENTRIES:
+        raise ValueError(f"{what}: X_hot must be (n, H) float32 or "
+                         f"bfloat16, got {X_hot.dtype} "
+                         f"{tuple(X_hot.shape)}")
     n, h = X_hot.shape
-    if h % ALIGN:
+    align = ALIGN_BYTES // X_hot.element_size()
+    if h % align:
         raise ValueError(f"{what}: X_hot's width {h} is not a multiple of "
-                         f"{ALIGN}")
+                         f"{align} ({X_hot.dtype} rows of 16 bytes)")
     if loss.name not in LOSSES:
         raise ValueError(f"{what}: no device policy for loss "
                          f"{loss.name!r}; have {LOSSES}")
@@ -142,20 +163,24 @@ def _check(what: str, X_hot: Tensor, loss: PointwiseLoss, columns: dict,
         raise ValueError(f"{what} runs on cpu or cuda, not {X_hot.device}")
 
 
-_launcher = None
+_launchers: dict = {}
 
 
 def load() -> None:
     """Build and load the kernel library now."""
-    global _launcher
-    if _launcher is not None:
+    global _launchers
+    if _launchers:
         return
-    fn = _build.load(NAME).hot_pass_f32
-    fn.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _launcher = fn
+    lib = _build.load(NAME)
+    bound = {}
+    for dtype, entry in ENTRIES.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 12 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        bound[dtype] = fn
+    _launchers = bound
 
 
 def _launch(entry, X_hot: Tensor, w_hot: Tensor,
@@ -167,8 +192,8 @@ def _launch(entry, X_hot: Tensor, w_hot: Tensor,
     what = entry.__name__
     n, h = X_hot.shape
     if not 0 < h <= MAX_COLUMNS:
-        raise ValueError(f"{what}: the kernel takes {ALIGN} to "
-                         f"{MAX_COLUMNS} columns, got {h}")
+        raise ValueError(f"{what}: the kernel takes 1 to {MAX_COLUMNS} "
+                         f"columns, got {h}")
     hessian = v_hot is not None
     X, w = X_hot.contiguous(), w_hot.contiguous()
     v = v_hot.contiguous() if hessian else None
@@ -187,14 +212,14 @@ def _launch(entry, X_hot: Tensor, w_hot: Tensor,
     groups = -(-n // ROW_GROUP)
     partial = torch.empty((groups, h), dtype=torch.float32, device=device)
     out = torch.empty(h, dtype=torch.float32, device=device)
-    rows, stages = ring_shape(h, hessian)
+    rows, stages = ring_shape(h, hessian, X.element_size())
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     load()
     with torch.cuda.device(device):
-        err = _launcher(
+        err = _launchers[X.dtype](
             X.data_ptr(), w.data_ptr(), ptr(v), *(ptr(t) for t in vecs),
             z.data_ptr(), ptr(xv), partial.data_ptr(), out.data_ptr(), n, h,
             rows, stages, groups, LOSSES.index(loss.name),
@@ -210,12 +235,15 @@ def hot_value_and_gradient(X_hot: Tensor, w_hot: Tensor, offsets: Tensor,
                            weights: Tensor, loss: PointwiseLoss
                            ) -> tuple[Tensor, Tensor]:
     """(z (n,), g_hot (H,)): the margins with the cold term, and
-    ``f32(X_hot)ᵀ · r`` for the loss's weighted first derivative at z.
+    ``f32(X_hot)ᵀ · ρ(r)`` for the loss's weighted first derivative r at
+    z.
 
-    ``X_hot`` (n, H) float32; ``w_hot`` (H,); ``offsets``, ``labels``,
-    ``weights`` and ``cold_z`` (or None) (n,), all float32. CPU tensors:
-    the plain version. CUDA tensors: the kernel (two launches: the pass,
-    then the sum of its partial rows in order), on the current stream.
+    ``X_hot`` (n, H) float32 or bfloat16; ``w_hot`` (H,) (rounded to
+    bfloat16 by the caller over a bfloat16 block); ``offsets``,
+    ``labels``, ``weights`` and ``cold_z`` (or None) (n,), all float32.
+    CPU tensors: the plain version. CUDA tensors: the kernel (two
+    launches: the pass, then the sum of its partial rows in order), on
+    the current stream.
     """
     _check("hot_value_and_gradient", X_hot, loss, {"w_hot": w_hot},
            {"offsets": offsets, "cold_z": cold_z, "labels": labels,
@@ -234,7 +262,7 @@ def hot_hessian_vector(X_hot: Tensor, w_hot: Tensor, v_hot: Tensor,
                        weights: Tensor, loss: PointwiseLoss
                        ) -> tuple[Tensor, Tensor, Tensor]:
     """(z, xv (n,), g_hot (H,)): the margins at w, the direction's row
-    products x·v, and ``f32(X_hot)ᵀ · r`` for the H·v row terms.
+    products x·v, and ``f32(X_hot)ᵀ · ρ(r)`` for the H·v row terms r.
 
     As :func:`hot_value_and_gradient`, with ``v_hot`` (H,) and
     ``cold_zv`` (n,) or None, the direction's hot and cold parts.

@@ -16,9 +16,13 @@ the TPU kernels ``hot_margins_pallas`` and ``hot_rmatvec_pallas`` of
 their bound and design. Like the Pallas programs, they upcast the codes
 in registers, so no (n, H) float32 copy of the block exists.
 
-Under bfloat16 the weights stay float32, as in the Pallas kernel; the
-reference's unfused path rounds them to bfloat16 first
-(``photon_ml_tpu/ops/hybrid_sparse._hot_matvec``).
+The kernels take float32 ``w_hot`` and ``r`` as given, as the Pallas
+kernels do. Over a bfloat16 block the routes that call them
+(``ops/streaming_sparse.py``, ``ops/hybrid_sparse.py``) pass them
+already rounded to bfloat16 (:func:`rounded_like`), as the reference's
+default (unfused) route rounds them
+(``photon_ml_tpu/ops/hybrid_sparse._hot_matvec`` and ``_hot_rmatvec``);
+each product is then exact in float32.
 
 The wrappers take CPU tensors to the plain versions and CUDA tensors to
 the kernels, or raise. There is no fallback from one to the other. The
@@ -43,6 +47,15 @@ NAME = "stream_fused"
 ROW_TILE = 512
 
 _SUFFIX = {torch.int8: "i8", torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def rounded_like(X_hot: Tensor, v: Tensor) -> Tensor:
+    """``v`` rounded to bfloat16 (to nearest even) and back to float32
+    where ``X_hot`` is bfloat16, as the reference's default route rounds
+    the small operand of a bfloat16 product; else ``v``."""
+    if X_hot.dtype == torch.bfloat16:
+        return v.to(torch.bfloat16).to(torch.float32)
+    return v
 
 
 def hot_margins_reference(X_hot: Tensor, w_hot: Tensor, base: Tensor

@@ -31,6 +31,16 @@ pass builds on the device after each chunk's transfer (cached for pinned
 chunks). Both kernels sum in a fixed order, so a pass gives the same bits
 every time.
 
+**bfloat16 storage.** ``feature_dtype="bfloat16"`` stores ``X_hot`` and
+``cold_vals`` in bfloat16, rounded once (to nearest even), as the
+reference does: half the bytes of every transfer. The chunk routes round
+what the reference's default (unfused) route rounds and nothing else:
+the hot coefficients before ``hot_margins`` and the residual r before
+``hot_rmatvec``; the cold tier multiplies float32 coefficients and
+residuals by its values upcast to float32. Every product then
+accumulates in float32. A bfloat16 chunk store keeps the bits as 2-byte
+void fields, as the reference's ``ml_dtypes`` arrays are saved.
+
 **Host→device.** :class:`ChunkStream` pins nothing itself: the coordinate
 pins the staged chunks' host memory once (:func:`pin_host_memory`). Each
 pass copies the streamed chunks with ``non_blocking`` copies on a copy
@@ -42,8 +52,7 @@ delivered.
 
 Not ported here: the sharded stream and mesh helpers (slice 9), fault
 sites, metric counters and spans (slices 6 and 10), the compile-cache
-counters (a torch program has no compile cache to count) and bfloat16
-chunk storage (slice 6), which raises.
+counters (a torch program has no compile cache to count).
 """
 
 from __future__ import annotations
@@ -59,7 +68,6 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from photon_ml_torch import not_ported
 from photon_ml_torch.device import DeviceLike, resolve_device
 from photon_ml_torch.ops.kernels import ell_scatter, stream_fused
 from photon_ml_torch.ops.kernels.ell_scatter import ColumnLayout
@@ -80,9 +88,9 @@ class CanonicalChunk:
     staging and device tensors while a pass reads it.
 
     Under int8 storage ``X_hot``/``cold_vals`` hold the codes and the two
-    scale vectors are present. ``layout`` is the
-    column layout of ``cold_cols`` that the ``ell_scatter`` kernel reads,
-    built on a CUDA device only."""
+    scale vectors are present; under bfloat16 both are bfloat16.
+    ``layout`` is the column layout of ``cold_cols`` that the
+    ``ell_scatter`` kernel reads, built on a CUDA device only."""
 
     X_hot: Tensor  # (n, H) — the chunk's top-H columns, densified
     hot_cols: Tensor  # (H,) int32 original column ids (pad == d)
@@ -256,9 +264,14 @@ def _build_canonical(raw, d: int, num_hot: int,
         q_hot, hot_scale = quantize_rows_int8(X_hot.T)
         X_hot = np.ascontiguousarray(q_hot.T)
         cold_vals, cold_scale = _quantize_cold_int8(cold_vals, cold_cols, d)
+    X_hot, cold_vals = _tensor(X_hot), _tensor(cold_vals)
+    if feature_dtype_name(feature_dtype) == "bfloat16":
+        # Storage only: each value rounded once, to nearest even.
+        X_hot = X_hot.to(torch.bfloat16)
+        cold_vals = cold_vals.to(torch.bfloat16)
     return CanonicalChunk(
-        X_hot=_tensor(X_hot), hot_cols=_tensor(hot_cols),
-        cold_cols=_tensor(cold_cols), cold_vals=_tensor(cold_vals),
+        X_hot=X_hot, hot_cols=_tensor(hot_cols),
+        cold_cols=_tensor(cold_cols), cold_vals=cold_vals,
         labels=_tensor(np.asarray(_host(raw.labels), np.float32)),
         weights=_tensor(np.asarray(_host(raw.weights), np.float32)),
         offsets=_tensor(np.asarray(_host(raw.offsets), np.float32)),
@@ -283,9 +296,6 @@ def build_chunked(
     the per-chunk canonicalization (GIL-releasing numpy) over a thread
     pool with a bounded window of ``workers + 2`` chunks, merged in plan
     order BIT-identically to the serial pass."""
-    if feature_dtype_name(feature_dtype) == "bfloat16":
-        raise not_ported("bfloat16 chunk storage (streaming "
-                         "feature_dtype='bfloat16')", 6)
     num_hot = min(num_hot, num_features)
     total = 0
     short_at = None
@@ -414,8 +424,10 @@ def _chunk_margins_of(ch: CanonicalChunk, w_pad: Tensor,
     """(n,) wᵀx + offset. The cold tier first, as the base: one gather of
     the (d + 1,) coefficient table over the (n, k) ELL and a row sum;
     then the hot tier through ``hot_margins``. Under int8 the scales fold
-    into the coefficients (w·(s·q) = (w·s)·q)."""
-    w_hot = torch.index_select(w_pad, 0, ch.hot_cols)
+    into the coefficients (w·(s·q) = (w·s)·q); under bfloat16 the hot
+    coefficients are rounded to bfloat16."""
+    w_hot = stream_fused.rounded_like(
+        ch.X_hot, torch.index_select(w_pad, 0, ch.hot_cols))
     w_cold = w_pad
     if ch.cold_scale is not None:
         w_cold = w_pad * ch.cold_scale
@@ -434,13 +446,15 @@ def _chunk_rowterm_grad(ch: CanonicalChunk, r: Tensor) -> Tensor:
     it, as a pinned chunk does), the
     hot tier through ``hot_rmatvec``, added onto ``hot_cols`` (unique but
     for the sentinel d, whose slot is dropped). Under int8 the raw r·q
-    sums are scaled once per column."""
+    sums are scaled once per column; under bfloat16 the hot tier reads r
+    rounded to bfloat16."""
     d = ch.num_features
     layout = ch.layout if ch.layout is not None else _with_layout(ch).layout
     cold = ell_scatter.scatter_rowterm(
         ch.cold_cols, r[:, None] * ch.cold_vals.to(torch.float32), d,
         layout=layout)
-    g_hot = stream_fused.hot_rmatvec(ch.X_hot, r)
+    g_hot = stream_fused.hot_rmatvec(ch.X_hot,
+                                     stream_fused.rounded_like(ch.X_hot, r))
     if ch.cold_scale is not None:
         cold = cold * ch.cold_scale[:d]
         g_hot = g_hot * ch.hot_scale
@@ -729,7 +743,8 @@ def margins_chunked(
 # package loads in the other. The payload round-trips bit-stable (the int8
 # codes and their scales are exact bytes). A chunk whose bytes fail the
 # committed CRC re-stages through the caller's ``rebuild`` hook — exactly
-# that chunk.
+# that chunk. bfloat16 fields are stored as their 16 bits in 2-byte void
+# fields, the form numpy gives the reference's ml_dtypes arrays.
 
 CHUNK_STORE_VERSION = 1
 
@@ -744,7 +759,7 @@ def save_chunked(directory: str, chunked: ChunkedHybrid) -> None:
     os.makedirs(directory, exist_ok=True)
     for i, ch in enumerate(chunked.chunks):
         path = os.path.join(directory, f"chunk_{i}.npz")
-        arrays = {name: t.cpu().numpy() for name, t in ch.tensors().items()}
+        arrays = {name: _stored(t) for name, t in ch.tensors().items()}
         atomic_write(path, lambda f, _a=arrays: np.savez(f, **_a))
         marker = json.dumps({
             "version": CHUNK_STORE_VERSION, "crc": file_crc32(path),
@@ -759,6 +774,21 @@ def save_chunked(directory: str, chunked: ChunkedHybrid) -> None:
         "dtype": chunk_dtype(chunked.chunks[0])}).encode()
     atomic_write(os.path.join(directory, "meta.json"),
                  lambda f: f.write(meta))
+
+
+def _stored(t: Tensor) -> np.ndarray:
+    """A chunk field as saved: bfloat16 as its bits in 2-byte void."""
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _from_stored(a: Optional[np.ndarray]) -> Optional[Tensor]:
+    """A saved field as a tensor: 2-byte void is bfloat16's bits."""
+    if a is not None and a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return _tensor(a.view(np.int16)).view(torch.bfloat16)
+    return _tensor(a)
 
 
 def _load_stored_chunk(directory: str, i: int) -> Optional[CanonicalChunk]:
@@ -781,7 +811,8 @@ def _load_stored_chunk(directory: str, i: int) -> Optional[CanonicalChunk]:
             arrays = {name: z[name] for name in marker["fields"]}
         return CanonicalChunk(
             num_features=int(marker["num_features"]),
-            **{name: _tensor(arrays.get(name)) for name in _CHUNK_FIELDS})
+            **{name: _from_stored(arrays.get(name))
+               for name in _CHUNK_FIELDS})
     except Exception:
         logger.debug("chunk store miss for chunk %d under %s",
                      i, directory, exc_info=True)
@@ -798,9 +829,6 @@ def load_chunked(directory: str, rebuild=None) -> ChunkedHybrid:
         raise ChunkStoreError(
             f"chunk store {directory} is version {meta.get('version')}, "
             f"expected {CHUNK_STORE_VERSION}")
-    if meta.get("dtype") == "bfloat16":
-        raise not_ported("bfloat16 chunk storage (a bfloat16 chunk store)",
-                         6)
     chunks = []
     for i in range(int(meta["num_chunks"])):
         ch = _load_stored_chunk(directory, i)

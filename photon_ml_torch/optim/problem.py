@@ -120,7 +120,7 @@ def run(loss: PointwiseLoss, batch: LabeledBatch,
     back as (d,); the OptResult keeps its lane axis of 1."""
     dim = batch.dim
     w0 = initial.means if initial is not None else batch.features.new_zeros(
-        (dim,))
+        (dim,), dtype=torch.float32)
     vg, hvp, l1w = make_objective(loss, batch, norm, config.regularization,
                                   intercept_index, dim)
     opt_cfg = resolve_optimizer_config(config.optimizer, l1w is not None)
@@ -176,7 +176,8 @@ def run_grid(loss: PointwiseLoss, batch: LabeledBatch,
         return agg.hessian_vector(loss, w, v, batch, norm) + lam * (v * mask)
 
     opt_cfg = resolve_optimizer_config(config.optimizer, False)
-    w0 = initial.means if initial is not None else X.new_zeros((dim,))
+    w0 = initial.means if initial is not None else X.new_zeros(
+        (dim,), dtype=torch.float32)
     result = optimize(vg, w0.expand(lam.shape[0], dim).clone(), opt_cfg,
                       hvp=hvp)
     return result.w, result

@@ -4,7 +4,9 @@ On CPU tensors the wrappers run their plain versions, which must equal
 the two-kernel route they replace bit for bit (``stream_fused``'s plain
 margins, the loss's torch functions, its plain transposed product), for
 every loss, with and without a cold term, at a ragged and a wider hot
-block. ``hybrid_sparse.value_and_gradient`` and ``hessian_vector``, now
+block, over float32 and over bfloat16 blocks (whose route rounds r to
+bfloat16 before the transposed product, and is given w and v already
+rounded). ``hybrid_sparse.value_and_gradient`` and ``hessian_vector``, now
 routed through them, must give the bits of that route too, and match
 the JAX package's ``photon_ml_tpu.ops.hybrid_sparse`` within the band of
 ``tests/test_torch_hybrid_sparse.py``: rtol 1e-5, and an absolute floor
@@ -100,7 +102,19 @@ def _two_kernel_route(b, loss, cold):
     r_g = torch.where(wt > 0.0, wt * dl, torch.zeros_like(dl))
     d2 = loss.d2z(z, b["labels"])
     r_h = torch.where(wt > 0.0, wt * d2, torch.zeros_like(d2)) * xv
+    if b["X"].dtype == torch.bfloat16:  # the reference's _hot_rmatvec
+        r_g, r_h = (r.to(torch.bfloat16).float() for r in (r_g, r_h))
     return z, xv, sf.hot_rmatvec(b["X"], r_g), sf.hot_rmatvec(b["X"], r_h)
+
+
+def _bf16_block(seed, name, n, h):
+    """_block with X stored in bfloat16 and w, v rounded to bfloat16, as
+    the hybrid route hands them over."""
+    b = _block(seed, name, n, h)
+    for k in ("X", "w", "v"):
+        b[k] = b[k].to(torch.bfloat16)
+    b["w"], b["v"] = b["w"].float(), b["v"].float()
+    return b
 
 
 @pytest.mark.parametrize("h", [40, 600])
@@ -120,6 +134,33 @@ def test_plain_pass_equals_two_kernel_route(one_thread, name, cold, h):
     for got, want in ((fz, z), (fg, g), (hz, z), (hxv, xv), (hg, g_h)):
         assert got.dtype == torch.float32 and torch.equal(got, want)
     assert torch.isfinite(fg).all() and torch.isfinite(hg).all()
+
+
+@pytest.mark.parametrize("h", [40, 600])
+@pytest.mark.parametrize("cold", [True, False], ids=["cold", "no cold"])
+@pytest.mark.parametrize("name", sorted(LOSSES))
+def test_plain_bfloat16_pass_equals_rounded_route(one_thread, name, cold,
+                                                  h):
+    """Over a bfloat16 block: z and xv the two-kernel route's bits with
+    the rounded w and v, and g that route's with r rounded to bfloat16;
+    the float32-residual product is another number."""
+    loss = LOSSES[name][0]
+    b = _bf16_block(7, name, 2500, h)
+    cz = b["cold_z"] if cold else None
+    czv = b["cold_zv"] if cold else None
+    z, xv, g, g_h = _two_kernel_route(b, loss, cold)
+    fz, fg = hp.hot_value_and_gradient(b["X"], b["w"], b["offsets"], cz,
+                                       b["labels"], b["weights"], loss)
+    hz, hxv, hg = hp.hot_hessian_vector(
+        b["X"], b["w"], b["v"], b["offsets"], cz, czv, b["labels"],
+        b["weights"], loss)
+    for got, want in ((fz, z), (fg, g), (hz, z), (hxv, xv), (hg, g_h)):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    wt = b["weights"]
+    _, dl = loss.loss_and_dz(z, b["labels"])
+    unrounded = sf.hot_rmatvec(b["X"], torch.where(wt > 0, wt * dl,
+                                                   torch.zeros_like(dl)))
+    assert not torch.equal(unrounded, fg)
 
 
 @pytest.fixture(scope="module", params=sorted(LAYOUTS))
@@ -210,7 +251,8 @@ def _call(entry, b, loss=losses.LOGISTIC):
 
 BAD = {
     "int8 X": lambda b: b.update(X=b["X"].to(torch.int8)),
-    "bfloat16 X": lambda b: b.update(X=b["X"].to(torch.bfloat16)),
+    "bfloat16 ragged width": lambda b: b.update(
+        X=b["X"][:, :4].to(torch.bfloat16), w=b["w"][:4], v=b["v"][:4]),
     "X rank": lambda b: b.update(X=b["X"].reshape(-1)),
     "ragged width": lambda b: b.update(X=b["X"][:, :6], w=b["w"][:6],
                                        v=b["v"][:6]),
@@ -286,6 +328,17 @@ def test_ring_shape_fits_a_block(h, hessian):
         assert (rows, stages) == (8, 3)
 
 
+@pytest.mark.parametrize("hessian", [False, True])
+@pytest.mark.parametrize("h", [8, 40, 2984, 4096, 8192])
+def test_ring_shape_fits_a_block_bfloat16(h, hessian):
+    rows, stages = hp.ring_shape(h, hessian, 2)
+    assert 1 <= rows <= hp.MAX_ROWS and hp.ROW_GROUP % rows == 0
+    assert 2 <= stages <= hp.MAX_STAGES
+    assert hp.shared_bytes(h, rows, stages, hessian, 2) <= hp.MAX_SHARED
+    if h == 2984:  # the config-5 bfloat16 block at 9.5M rows
+        assert (rows, stages) == (8, 4)
+
+
 def _within_terms(got, exact, mag):
     return bool(np.all(np.abs(got - exact) <= TERM_TOL * mag))
 
@@ -326,6 +379,52 @@ def test_kernel_matches_plain_on_cuda(name):
         r_g = torch.where(wt > 0, wt * dl, torch.zeros_like(dl))
         r_h = torch.where(wt > 0, wt * loss.d2z(z, b["labels"]),
                           torch.zeros_like(dl)) * xv
+        for got, r, plain in ((g1, r_g, pg), (hg, r_h, ph)):
+            r64 = r.double().cpu().numpy()
+            assert _within_terms(got.cpu().numpy(), r64 @ x64,
+                                 np.abs(r64) @ np.abs(x64))
+            rel = float((got - plain).abs().max()) / max(
+                float(plain.abs().max()), 1e-9)
+            assert rel <= PARITY_REL
+
+
+@pytest.mark.parametrize("name", sorted(LOSSES))
+def test_kernel_matches_plain_on_cuda_bfloat16(name):
+    """test_kernel_matches_plain_on_cuda over bfloat16 blocks (w and v
+    rounded, r rounded inside the pass): z and xv bit for bit the
+    rounded route's, g within 1e-5 · Σ|terms| of the float64 sum of the
+    same rounded operands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hot_pass kernel has no CPU "
+                    "mode (chip_smoke.py holds it on the card)")
+    loss = LOSSES[name][0]
+    for n, h, cold in ((4097, 600, True), (1000, 40, False),
+                       (513, 2984, True)):
+        b = {k: x.cuda() for k, x in _bf16_block(9, name, n, h).items()}
+        if not cold:
+            b["cold_z"] = b["cold_zv"] = None
+        z, xv, _, _ = _two_kernel_route(b, loss, cold)
+        before = _counters()
+        z1, g1 = _call("value_and_gradient", b, loss)
+        z2, g2 = _call("value_and_gradient", b, loss)
+        hz, hxv, hg = _call("hessian_vector", b, loss)
+        torch.cuda.synchronize()
+        assert _counters()[:2] == (before[0] + 2, before[1] + 1)
+        assert torch.equal(z1, z) and torch.equal(z2, z)
+        assert torch.equal(hz, z) and torch.equal(hxv, xv)
+        assert torch.equal(g1, g2)
+        _, pg = hp.hot_value_and_gradient_reference(
+            b["X"], b["w"], b["offsets"], b["cold_z"], b["labels"],
+            b["weights"], loss)
+        *_, ph = hp.hot_hessian_vector_reference(
+            b["X"], b["w"], b["v"], b["offsets"], b["cold_z"],
+            b["cold_zv"], b["labels"], b["weights"], loss)
+        wt, x64 = b["weights"], b["X"].double().cpu().numpy()
+        _, dl = loss.loss_and_dz(z, b["labels"])
+        r_g = torch.where(wt > 0, wt * dl, torch.zeros_like(dl))
+        r_h = torch.where(wt > 0, wt * loss.d2z(z, b["labels"]),
+                          torch.zeros_like(dl)) * xv
+        r_g, r_h = (r.to(torch.bfloat16).float() for r in (r_g, r_h))
         for got, r, plain in ((g1, r_g, pg), (hg, r_h, ph)):
             r64 = r.double().cpu().numpy()
             assert _within_terms(got.cpu().numpy(), r64 @ x64,

@@ -128,6 +128,17 @@ def test_precision_policy_keeps_float32():
         resolve_device("meta")
 
 
+def test_precision_policy_keeps_bfloat16_reductions_float32():
+    """cuBLAS may not reduce a bfloat16 product's split-K partials in
+    bfloat16 (PyTorch's default allows it)."""
+    from photon_ml_torch.device import resolve_device
+
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = True
+    resolve_device("cpu")
+    assert matmul.allow_bf16_reduced_precision_reduction is False
+
+
 def test_chip_smoke_refuses_without_cuda():
     """chip_smoke.py exits non-zero and prints no result without CUDA."""
     if torch.cuda.is_available():

@@ -127,9 +127,10 @@ def test_integer_fixture_bit_exact(dtype):
 
 
 def test_bfloat16_weights_stay_float32():
-    """The port's bfloat16 path multiplies by float32 weights (the Pallas
-    kernel's choice); rounding the weights to bfloat16, as the
-    reference's unfused path does, gives other numbers."""
+    """The kernel multiplies by the float32 weights it is given (the
+    Pallas kernel's contract); the routes round them to bfloat16 before
+    the call, as the reference's default route does, and that gives
+    other numbers than unrounded weights."""
     rng = np.random.default_rng(3)
     x, xt, _ = _codes(rng, 64, 32, "bfloat16")
     w = _vec(rng, 32)

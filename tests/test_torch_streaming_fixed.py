@@ -1,9 +1,9 @@
 """The port's row-streamed sparse fixed effect against the reference.
 
 A config-5 shaped fixture at CPU scale (Zipf(1.3) columns, an intercept
-column in every row, base offsets in the data) is staged into int8 and
-float32 hot/cold chunks (three chunks, a short tail) and fitted in a
-2-iteration coordinate descent by the reference's
+column in every row, base offsets in the data) is staged into int8,
+bfloat16 and float32 hot/cold chunks (three chunks, a short tail) and
+fitted in a 2-iteration coordinate descent by the reference's
 ``StreamingSparseFixedEffectCoordinate`` and the port's (``device="cpu"``,
 the plain kernels), and by the port's resident
 ``SparseFixedEffectCoordinate``: coefficients and scores within 5e-3 (the
@@ -110,7 +110,7 @@ def _stage(ds, cfg, dtype, **kw):
         device="cpu")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
 @pytest.mark.parametrize("reg,weight", [("L2", 1.0), ("ELASTIC_NET", 2.0)])
 def test_descent_matches_reference_and_resident(data, dtype, reg, weight):
     ds, rds = data
@@ -205,8 +205,6 @@ def test_estimator_refusals(data):
     for solver in ("sdca", "sgd"):
         with pytest.raises(NOT_PORTED, match="slice 7"):
             _estimator(StreamingConfig(solver=solver)).fit(ds)
-    with pytest.raises(NOT_PORTED, match="slice 6"):
-        _estimator(StreamingConfig(feature_dtype="bfloat16")).fit(ds)
     with pytest.raises(ValueError, match="chunk_rows"):
         StreamingConfig(chunk_rows=0)
 

@@ -233,6 +233,56 @@ def test_fixed_effect_matches_reference(data, coords):
     _close(port["fixed"].score(got), ref["fixed"].score(want), tol=2 * TOL)
 
 
+def test_fixed_effect_bfloat16_matches_reference(data):
+    """feature_dtype="bfloat16" on the dense fixed effect: bfloat16
+    storage in both packages, one update from the same offsets,
+    coefficients and the training AUC within TOL."""
+    train, _, ref_train, _ = data
+    port = FixedEffectCoordinate(train, "global", losses.LOGISTIC, CFG,
+                                 feature_dtype="bfloat16", device="cpu")
+    ref = RefFixedEffectCoordinate(ref_train, "global", ref_losses.LOGISTIC,
+                                   REF_CFG, make_mesh(),
+                                   feature_dtype="bfloat16")
+    assert port._staged.features.dtype == torch.bfloat16
+    off = _offsets(train.num_rows, 1)
+    got = port.train_model(off)
+    want = ref.train_model(jnp.asarray(off))
+    assert got.coefficients.means.dtype == torch.float32
+    _close(got.coefficients.means, want.coefficients.means)
+    y = train.response
+    assert abs(float(auc(port.score(got) + torch.from_numpy(off),
+                         torch.from_numpy(y)))
+               - float(ref_auc(ref.score(want) + jnp.asarray(off),
+                               jnp.asarray(y)))) <= TOL
+
+
+def test_random_effect_bfloat16_matches_reference(data):
+    """feature_dtype="bfloat16" on a random effect: bfloat16 bucket
+    blocks in both packages (the scoring shard stays float32), one update
+    from the same offsets, the entity tables within TOL as
+    test_random_effect_matches_reference holds them, and the training
+    AUC within TOL."""
+    train, _, ref_train, _ = data
+    port = RandomEffectCoordinate(
+        train, "userId", "re_userId", losses.LOGISTIC, CFG,
+        upper_bound=UPPER, rng=np.random.default_rng(0),
+        feature_dtype="bfloat16", device="cpu")
+    ref = RefRandomEffectCoordinate(
+        ref_train, "userId", "re_userId", ref_losses.LOGISTIC, REF_CFG,
+        make_mesh(), upper_bound=UPPER, seed=0, feature_dtype="bfloat16")
+    assert all(w.X.dtype == torch.bfloat16 for w in port._waves)
+    assert port._X.dtype == torch.float32
+    off = _offsets(train.num_rows, 2)
+    got = port.train_model(off)
+    want = ref.train_model(jnp.asarray(off))
+    _re_close(port, got.means, want.means)
+    y = train.response
+    assert abs(float(auc(port.score(got) + torch.from_numpy(off),
+                         torch.from_numpy(y)))
+               - float(ref_auc(ref.score(want) + jnp.asarray(off),
+                               jnp.asarray(y)))) <= TOL
+
+
 @pytest.mark.parametrize("movers", ["xla", "pallas_interpret"])
 def test_random_effect_matches_reference(data, coords, kernel_registry,
                                          movers):
@@ -365,15 +415,13 @@ def test_coordinates_raise_without_cuda(data):
 
 
 @pytest.mark.parametrize("option", ["projection", "subspace", "ratio",
-                                    "staging_cache", "bf16",
-                                    "down_sampling"])
+                                    "staging_cache", "down_sampling"])
 def test_unported_options_raise(data, option):
     train = data[0]
     kw = {"projection": {"projection": True},
           "subspace": {"subspace_model": True},
           "ratio": {"features_to_samples_ratio": 0.5},
-          "staging_cache": {"staging_cache_dir": "cache"},
-          "bf16": {"feature_dtype": "bfloat16"}}.get(option)
+          "staging_cache": {"staging_cache_dir": "cache"}}.get(option)
     with pytest.raises(NotImplementedError, match="slice 6"):
         if kw is None:
             FixedEffectCoordinate(
