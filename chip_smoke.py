@@ -35,6 +35,17 @@ code is non-zero:
              against their plain versions at every wave shape the train
              phase gave them, on an all-padding wave and at a sweep
              shape, and times kernel, plain version and library call.
+   train_resume — train's descent again over its coordinates with a
+             CheckpointManager in a temporary directory, killed by a proxy
+             that raises on the 5th train_model of 6, then resumed from the
+             checkpoint with fresh proxies: the coefficient tables equal
+             train's bit for bit, and so does the residual total (train's
+             chain replayed from the checkpoint with train's models); the
+             first leg's fixed effect equals train's (two descents, the
+             same bits); re_rows launches on the resumed leg equal the
+             remaining updates' waves; a third run makes no update. Each
+             save's seconds and bytes; the dataset digest of the
+             checkpoint's fingerprint, timed apart from the killed leg.
    train_bf16 — the same 20M rows with bfloat16 feature storage on the
              fixed effect and both random effects (the reference's
              flagship dtype), one outer iteration (cut, for time):
@@ -63,6 +74,14 @@ code is non-zero:
              each fit's peak device memory and one evaluation's
              milliseconds at the L-BFGS fit's final iterate (the ELL side
              of hybrid_bf16_train's layout comparison) are reported.
+   sparse_down_sampled — sparse_train's staged ELL coordinate through
+             with_optimization_config, down-sampled by the binary
+             classification sampler at rate 0.5 (L-BFGS 60), two
+             train_model calls: two different subsets, as the
+             coordinate's draws return them, ell_rmatvec launches equal to
+             each fit's evaluations, validation AUC above 0.5 beside the
+             full fit's; the sampled rows, the seconds of the gather and
+             the column layout a draw, each fit's peak memory.
 9. kernels — holds ell_scatter's two routes against their plain versions
              on the card at the main path's shape (with the fit's own
              residual), at d = 512 and 2048, with uniform ids over d = 1M
@@ -79,10 +98,10 @@ code is non-zero:
              version and a CSR torch.mv of Xᵀ; and the bytes each route
              allocates a call.
 10. stream_train — the row-streamed config-5 fixed effect: the first
-             4,750,000 of those training rows (cut, for time) and the
+             2,500,000 of those training rows (cut, for time) and the
              500,000 validation rows, fitted through
              GameEstimator(streaming=StreamingConfig(...)) in int8 chunks
-             of 262,144 rows with 512 hot columns (19 chunks, the last
+             of 262,144 rows with 512 hot columns (10 chunks, the last
              one padded), 20 L-BFGS iterations. hot_margins,
              hot_rmatvec and ell_scatter launches are read around the fit
              alone and must equal the chunks times the passes that run
@@ -91,6 +110,12 @@ code is non-zero:
              the same staged chunks must agree (value within 1e-5
              relative, each gradient column within sparse_parity's
              allowance).
+   stream_resume — stream_train's staged int8 coordinate fitted again
+             with a bound StreamingStateStore whose save raises after
+             iteration 10 of 20, then resumed from the store: stream_train's
+             coefficients bit for bit; hot_margins, hot_rmatvec and
+             scatter_rowterm launches on the resumed leg equal the chunks
+             times its passes; each save's seconds and the state's bytes.
 11. kernels — holds hot_margins and hot_rmatvec against their plain
              versions on the card at the streamed chunk (int8, and
              dequantised to float32 and bfloat16), on the padded tail
@@ -187,6 +212,13 @@ code is non-zero:
              evaluations, hot_hessian_vector's to its H·v products,
              cold_grad's to both, and hot_rmatvec none.
    hybrid_bf16_parity — the same with a bfloat16 hot block.
+   down_sampling_parity — down-sampled fits (rate 0.5, one seed, so the
+             same subsets) on the card and on the CPU, 10 iterations:
+             config 4's fixed effect at 300,000 rows and sparse_parity's
+             rows on ELL and in the float32 hybrid layout; coefficients
+             within 5e-3, ell_rmatvec launches equal to the ELL fit's
+             evaluations, hot_value_and_gradient's and cold_grad's to the
+             hybrid fit's, hot_hessian_vector's 0 on that L-BFGS fit.
 17. glm_train — the GLM driver path, BASELINE configs 1–3, at the public
              datasets' shapes from seed 2026 (the datasets are not
              fetched). Config 1, logistic L-BFGS with L2 on a1a_like at
@@ -217,11 +249,12 @@ code is non-zero:
              bfloat16 variant (bench.py:227–231, the same X rounded to
              bfloat16), which must allocate no float32 copy of X.
 
-The phases run in the order of the main path's data: train,
-train_bf16, the train parities, sparse_train, its kernels, stream_train,
-its kernels, hybrid_train, cold_grad's kernels, hybrid_bf16_train,
-stream_bf16_train, then the sparse, stream, hybrid and hybrid_bf16
-parities and the GLM phases. Each line carries the seconds since the
+The phases run in the order of the main path's data: train, its
+kernels, train_resume, train_bf16, the train parities, sparse_train,
+its kernels, sparse_down_sampled, stream_train, its kernels,
+stream_resume, hybrid_train, cold_grad's kernels, hybrid_bf16_train,
+stream_bf16_train, then the sparse, stream, hybrid, hybrid_bf16 and
+down-sampling parities and the GLM phases. Each line carries the seconds since the
 start ("at_seconds").
 
 Then it prints the kernel table ({"kernels": [...]}; the hybrid block's
@@ -389,6 +422,13 @@ STEP_DIM = 256
 STEP_SHORT = 20
 STEP_LONG = 220
 STEP_RUNS = 5
+# Down-sampling and resume: the binary classification sampler's rate
+# (examples/sparse_criteo_style.py's negative down-sampling), the update
+# of train's 6 at which train_resume's first leg is killed, and the
+# iteration of stream_train's 20 after which stream_resume's is.
+DOWN_SAMPLING_RATE = 0.5
+TRAIN_KILL_AT = 5
+STREAM_KILL_AFTER = 10
 
 
 _T0 = time.perf_counter()
@@ -3778,6 +3818,398 @@ def phase_glm_gradient_step(np, torch, card: str) -> dict:
     return out
 
 
+# -- down-sampling and resume (slice 6 items 3-4a) --------------------------
+
+class Killed(Exception):
+    """The simulated kill of a resume phase."""
+
+
+class CountedCoordinate:
+    """A coordinate whose train_model calls count in a counter shared by
+    a descent's coordinates; call number ``kill_at`` raises Killed
+    instead (0: never)."""
+
+    def __init__(self, coord, counter: list, kill_at: int = 0):
+        self.coord = coord
+        self.counter = counter
+        self.kill_at = kill_at
+
+    def __getattr__(self, name):
+        return getattr(self.coord, name)
+
+    def train_model(self, offsets, initial=None):
+        self.counter[0] += 1
+        if self.counter[0] == self.kill_at:
+            raise Killed(f"killed at train_model call {self.kill_at}")
+        return self.coord.train_model(offsets, initial=initial)
+
+
+def counted(coords: dict, kill_at: int = 0) -> tuple:
+    counter = [0]
+    return ({cid: CountedCoordinate(c, counter, kill_at)
+             for cid, c in coords.items()}, counter)
+
+
+def timed_manager(directory: str, saves: list):
+    """A CheckpointManager that appends each save's seconds and the
+    bytes of the artifacts it rewrote (the ones whose CRC changed, and
+    state.json) to ``saves``."""
+    from photon_ml_torch.game.checkpoint import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def save(self, task, models, **kw):
+            before = dict(self._crcs)
+            t0 = time.perf_counter()
+            super().save(task, models, **kw)
+            seconds = time.perf_counter() - t0
+            rewritten = [r for r, c in self._crcs.items()
+                         if before.get(r) != c] + ["state.json"]
+            saves.append({
+                "done_steps": kw["done_steps"],
+                "complete": kw.get("complete", False), "seconds": seconds,
+                "bytes": sum(os.path.getsize(self._abs(r))
+                             for r in rewritten)})
+
+    return Timed(directory)
+
+
+def phase_train_resume(np, torch, card: str, trained: dict) -> dict:
+    """train's descent again over its coordinates, with a checkpoint
+    manager, killed at the TRAIN_KILL_AT-th update and resumed: the same
+    bits as train's uninterrupted model."""
+    from photon_ml_torch.game import descent
+    from photon_ml_torch.ops.kernels import re_rows as rr
+    from photon_ml_torch.types import TaskType
+
+    coords, want = trained["coords"], trained["model"]
+    waves = {cid: coords[cid].num_waves for cid in SEQ[1:]}
+    task = TaskType.LOGISTIC_REGRESSION
+    cfg = descent.CoordinateDescentConfig(SEQ, iterations=DESCENT_ITERATIONS)
+    updates = DESCENT_ITERATIONS * len(SEQ)
+    saves: list = []
+    # The fingerprint's dataset digest, timed apart from the killed leg,
+    # which then reads it memoized on the dataset.
+    ds = coords[SEQ[0]].dataset
+    vars(ds).pop("_content_digest", None)
+    t0 = time.perf_counter()
+    descent._dataset_digest(ds)
+    digest_s = time.perf_counter() - t0
+    digest_bytes = sum(a.nbytes for a in (
+        ds.response, ds.offsets, ds.weights, *ds.entity_ids.values(),
+        *(a for x in ds.feature_shards.values()
+          for a in ((x.indices, x.values) if hasattr(x, "indices")
+                    else (x,)))))
+    with tempfile.TemporaryDirectory(prefix="photon-chip-smoke-") as tmp:
+        path = os.path.join(tmp, "checkpoint")
+        killed, counter = counted(coords, TRAIN_KILL_AT)
+        t0 = time.perf_counter()
+        try:
+            descent.run(task, killed, cfg,
+                        checkpoint_manager=timed_manager(path, saves))
+        except Killed:
+            pass
+        else:
+            raise AssertionError("train_resume: the kill did not fire")
+        killed_s = time.perf_counter() - t0
+        state = timed_manager(path, []).load(device="cuda")
+        done = TRAIN_KILL_AT - 1
+        if state is None or state.done_steps != done or state.complete:
+            raise AssertionError(f"train_resume: the checkpoint holds "
+                                 f"{state and state.done_steps} steps, "
+                                 f"expected {done}")
+        # The premise of a bit-exact resume: the killed run's first
+        # updates gave train's bits (its fixed effect's last update is
+        # update 4 of both runs).
+        if not torch.equal(state.models["fixed"].coefficients.means,
+                           want.models["fixed"].coefficients.means):
+            raise AssertionError("train_resume: a second descent over the "
+                                 "same coordinates gave other bits")
+        fresh, counter = counted(coords)
+        rr.gather_rows.launches = 0  # the resumed leg starts
+        rr.scatter_rows_.launches = 0
+        t0 = time.perf_counter()
+        model, history = descent.run(
+            task, fresh, cfg, checkpoint_manager=timed_manager(path, saves))
+        resumed_s = time.perf_counter() - t0
+        gathers = rr.gather_rows.launches  # ... and ends here
+        scatters = rr.scatter_rows_.launches
+        resumed_calls = counter[0]
+        final = timed_manager(path, []).load(device="cuda")
+        third, counter = counted(coords)
+        t0 = time.perf_counter()
+        again, _ = descent.run(task, third, cfg,
+                               checkpoint_manager=timed_manager(path, []))
+        third_s = time.perf_counter() - t0
+        third_calls = counter[0]
+    remaining = sum(waves[cid] for cid in SEQ[done % len(SEQ):])
+    if resumed_calls != updates - done or gathers != remaining \
+            or scatters != remaining:
+        raise AssertionError(
+            f"train_resume: the resumed leg made {resumed_calls} updates "
+            f"and {gathers} gathers, {scatters} scatters; expected "
+            f"{updates - done} and {remaining} ({waves} waves)")
+    tables = coefficient_tables(model)
+    for cid, table in coefficient_tables(want).items():
+        if not torch.equal(tables[cid], table):
+            raise AssertionError(f"train_resume: the resumed {cid} "
+                                 "coefficients differ from train's")
+    # The residual total: the resumed run's final one against train's
+    # chain, replayed from the killed run's checkpoint with train's final
+    # models (total + new − old, as the descent writes it).
+    total = torch.from_numpy(state.residual_total).cuda()
+    for cid in SEQ[done % len(SEQ):]:
+        total = (total + coords[cid].score(want.models[cid])
+                 - coords[cid].score(state.models[cid]))
+    if not (final.complete and np.array_equal(
+            final.residual_total.view(np.uint32),
+            total.cpu().numpy().view(np.uint32))):
+        raise AssertionError("train_resume: the resumed residual total is "
+                             "not train's")
+    if third_calls or not all(torch.equal(a, b) for a, b in zip(
+            coefficient_tables(again).values(), tables.values())):
+        raise AssertionError(f"train_resume: a third run made "
+                             f"{third_calls} updates or other models")
+    emit("train_resume", card=card, rows=coords["fixed"].dataset.num_rows,
+         updates=updates, killed_at=TRAIN_KILL_AT, done_steps=done,
+         killed_seconds=killed_s, resumed_seconds=resumed_s,
+         short_circuit_seconds=third_s, resumed_updates=resumed_calls,
+         launches={"gather_rows": gathers, "scatter_rows_": scatters},
+         waves=waves, bit_identical=True,
+         residual_bytes=int(state.residual_total.nbytes), saves=saves,
+         digest_seconds=digest_s, digest_bytes=int(digest_bytes))
+    return {"gathers": gathers, "scatters": scatters}
+
+
+def phase_sparse_down_sampled(np, torch, card: str, trained: dict) -> dict:
+    """sparse_train's staged ELL coordinate, down-sampled: the binary
+    classification sampler at DOWN_SAMPLING_RATE, L-BFGS 60, two
+    train_model calls (two draws). The subsets compared are the ones the
+    coordinate drew, recorded as its draw returns them."""
+    import dataclasses
+
+    from photon_ml_torch.evaluation.evaluators import auc
+    from photon_ml_torch.game.coordinates import sparse_fixed
+    from photon_ml_torch.game.models import GameModel
+    from photon_ml_torch.ops.kernels import ell_scatter
+    from photon_ml_torch.types import TaskType
+
+    train, val = trained["train"], trained["val"]
+    cfg = dataclasses.replace(
+        sparse_estimator("cuda").coordinate_configs["ctr"].optimization,
+        down_sampling_rate=DOWN_SAMPLING_RATE)
+    coord = trained["coord"].with_optimization_config(cfg)
+    offsets = torch.zeros(train.num_rows, device="cuda")
+    y_val = torch.as_tensor(val.response, device="cuda")
+    draws, subsets = [], []
+    draw = sparse_fixed.draw_down_sample
+
+    def recording_draw(coordinate, rate):
+        idx, mult = draw(coordinate, rate)
+        subsets.append(idx.copy())
+        return idx, mult
+
+    sparse_fixed.draw_down_sample = recording_draw
+    try:
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            ell_scatter.ell_rmatvec.launches = 0  # the fit starts
+            ell_scatter.scatter_rowterm.launches = 0
+            model, fit_s = synced_seconds(
+                torch, lambda: coord.train_model(offsets))
+            launches = ell_scatter.ell_rmatvec.launches  # ... and ends
+            generic = ell_scatter.scatter_rowterm.launches
+            peak = torch.cuda.max_memory_allocated()
+            solve = dict(coord.last_solve)
+            means = model.coefficients.means
+            scores = GameModel(TaskType.LOGISTIC_REGRESSION,
+                               {"ctr": model}).score(val)
+            if launches != solve["gradient_evaluations"] or generic:
+                raise AssertionError(
+                    f"sparse_down_sampled: ell_rmatvec launched {launches} "
+                    f"times for {solve['gradient_evaluations']} "
+                    f"evaluations, scatter_rowterm {generic} times")
+            if not bool(torch.isfinite(means).all()):
+                raise AssertionError(f"sparse_down_sampled: {solve}")
+            draws.append({**solve, "fit_seconds": fit_s,
+                          "launches": launches,
+                          "auc": float(auc(scores, y_val)),
+                          "max_memory_allocated": peak, "means": means})
+    finally:
+        sparse_fixed.draw_down_sample = draw
+    if len(subsets) != 2 or any(d["sampled_rows"] != len(i)
+                                for d, i in zip(draws, subsets)):
+        raise AssertionError(f"sparse_down_sampled: {len(subsets)} draws "
+                             f"recorded for 2 fits, rows "
+                             f"{[d['sampled_rows'] for d in draws]}")
+    if np.array_equal(np.sort(subsets[0]), np.sort(subsets[1])) or \
+            torch.equal(draws[0]["means"], draws[1]["means"]):
+        raise AssertionError("sparse_down_sampled: the two train_model "
+                             "calls drew the same subset")
+    if not all(d["auc"] > 0.5 for d in draws):
+        raise AssertionError(f"sparse_down_sampled: validation AUC "
+                             f"{[d['auc'] for d in draws]} not above 0.5")
+    staged = coord.staged
+    emit("sparse_down_sampled", card=card, rows=train.num_rows,
+         rate=DOWN_SAMPLING_RATE, positives=int((train.response > 0).sum()),
+         staged_batch_bytes=sum(t.numel() * t.element_size() for t in (
+             staged.indices, staged.values, staged.labels, staged.weights,
+             staged.offsets)),
+         staged_layout_bytes=staged.layout.nbytes,
+         draws=[{k: v for k, v in d.items() if k != "means"}
+                for d in draws],
+         full_fit_auc=trained["ell"]["auc"],
+         full_fit_seconds=trained["ell"]["fit_seconds"])
+    return {"launches": sum(d["launches"] for d in draws)}
+
+
+def phase_down_sampling_parity(np, torch, card: str, parity: dict) -> dict:
+    """Down-sampled fits of the 300,000-row fixtures on the card and on
+    the CPU from one seed (so the same subsets): the dense fixed effect
+    (config 4's), ELL and the float32 hybrid layout (config 5's), each
+    PARITY_EARLY_ITERATIONS iterations, coefficients within PARITY_TOL;
+    the hybrid's fused-pass and cold_grad launches equal its
+    evaluations, and its L-BFGS fit launches no H·v pass."""
+    from photon_ml_torch.game.coordinates import (FixedEffectCoordinate,
+                                                  SparseFixedEffectCoordinate)
+    from photon_ml_torch.ops import losses
+    from photon_ml_torch.ops.kernels import cold_grad as cg
+    from photon_ml_torch.ops.kernels import ell_scatter
+    from photon_ml_torch.ops.kernels import hot_pass as hp
+    from photon_ml_torch.optim import OptimizerConfig
+    from photon_ml_torch.optim.problem import GLMOptimizationConfiguration
+    from photon_ml_torch.optim.regularization import (RegularizationContext,
+                                                      RegularizationType)
+
+    cfg = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(max_iterations=PARITY_EARLY_ITERATIONS,
+                                  tolerance=1e-7),
+        regularization=RegularizationContext(RegularizationType.L2, 1.0),
+        down_sampling_rate=DOWN_SAMPLING_RATE)
+    dense, _ = make_train_data(np, PARITY_ROWS)
+    sparse_train = parity["train"]
+    builders = {
+        "dense": (dense, lambda d: FixedEffectCoordinate(
+            dense, "global", losses.LOGISTIC, cfg, device=d)),
+        "ell": (sparse_train, lambda d: SparseFixedEffectCoordinate(
+            sparse_train, "global", losses.LOGISTIC, cfg, hybrid=False,
+            device=d)),
+        "hybrid": (sparse_train, lambda d: SparseFixedEffectCoordinate(
+            sparse_train, "global", losses.LOGISTIC, cfg, device=d))}
+    counters = {"ell_rmatvec": ell_scatter.ell_rmatvec,
+                "hot_value_and_gradient": hp.hot_value_and_gradient,
+                "hot_hessian_vector": hp.hot_hessian_vector,
+                "cold_grad": cg.cold_grad}
+    out = {}
+    for name, (data, build) in builders.items():
+        fits = {}
+        for device in ("cuda", "cpu"):
+            coord = build(device)
+            offsets = torch.zeros(data.num_rows, device=device)
+            for fn in counters.values():  # the fit starts
+                fn.launches = 0
+            t0 = time.perf_counter()
+            means = coord.train_model(offsets).coefficients.means
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launches = {k: fn.launches  # ... and ends
+                        for k, fn in counters.items()}
+            fits[device] = {"means": means.cpu(), "launches": launches,
+                            "seconds": time.perf_counter() - t0,
+                            "solve": getattr(coord, "last_solve", None)}
+        diff = float((fits["cuda"]["means"] - fits["cpu"]["means"]).abs()
+                     .max())
+        out[name] = {"coefficient_max_diff": diff,
+                     **{f"{d}_seconds": f["seconds"]
+                        for d, f in fits.items()},
+                     "launches": fits["cuda"]["launches"],
+                     "solve": fits["cuda"]["solve"]}
+        if not diff <= PARITY_TOL:
+            raise AssertionError(f"down_sampling_parity {name}: cuda and "
+                                 f"cpu coefficients {diff} apart")
+    hybrid = out["hybrid"]
+    evals = hybrid["solve"]["gradient_evaluations"]
+    if not (hybrid["launches"]["hot_value_and_gradient"] == evals
+            == hybrid["launches"]["cold_grad"]) \
+            or hybrid["launches"]["hot_hessian_vector"] != 0 \
+            or out["ell"]["launches"]["ell_rmatvec"] != \
+            out["ell"]["solve"]["gradient_evaluations"]:
+        raise AssertionError(f"down_sampling_parity: launches {out}")
+    emit("down_sampling_parity", card=card, rows={
+        "dense": dense.num_rows, "sparse": sparse_train.num_rows},
+         rate=DOWN_SAMPLING_RATE, iterations=PARITY_EARLY_ITERATIONS,
+         tolerance=PARITY_TOL, fits=out)
+    return {k: v["launches"] for k, v in out.items()}
+
+
+def phase_stream_resume(np, torch, card: str, trained: dict) -> dict:
+    """stream_train's staged int8 coordinate fitted again with a bound
+    step store whose save raises after iteration STREAM_KILL_AFTER, then
+    resumed from the store: stream_train's bits."""
+    from photon_ml_torch.ops.kernels import ell_scatter
+    from photon_ml_torch.ops.kernels import stream_fused as sf
+
+    coord, want = trained["coord"], trained["w"]
+    chunks = coord.chunked.num_chunks
+    offsets = torch.zeros(coord.dataset.num_rows, device="cuda")
+    saves = []
+    with tempfile.TemporaryDirectory(prefix="photon-chip-smoke-") as tmp:
+        coord.bind_step_checkpoint(os.path.join(tmp, "stream-step-1"), 1)
+        store = coord._ckpt_store
+        save = store.save
+
+        def killing_save(state, **kw):
+            if int(state["it"]) > STREAM_KILL_AFTER:
+                raise Killed(f"killed after iteration {STREAM_KILL_AFTER}")
+            t0 = time.perf_counter()
+            save(state, **kw)
+            saves.append(time.perf_counter() - t0)
+
+        store.save = killing_save
+        t0 = time.perf_counter()
+        try:
+            coord.train_model(offsets)
+        except Killed:
+            pass
+        else:
+            raise AssertionError("stream_resume: the kill did not fire")
+        killed_s = time.perf_counter() - t0
+        store.save = save
+        state_bytes = os.path.getsize(os.path.join(
+            store.directory, "stream_state.npz"))
+        before = dict(coord.stream.passes)
+        counters = {"hot_margins": sf.hot_margins,
+                    "hot_rmatvec": sf.hot_rmatvec,
+                    "ell_scatter": ell_scatter.scatter_rowterm}
+        for fn in counters.values():  # the resumed leg starts
+            fn.launches = 0
+        model, resumed_s = synced_seconds(
+            torch, lambda: coord.train_model(offsets))
+        launches = {k: fn.launches  # ... and ends here
+                    for k, fn in counters.items()}
+        coord.clear_step_checkpoint()
+    passes = {k: coord.stream.passes[k] - before[k] for k in before}
+    expect = {"hot_margins": chunks * (passes["value_grad"]
+                                       + passes["value"]),
+              "hot_rmatvec": chunks * passes["value_grad"],
+              "ell_scatter": chunks * passes["value_grad"]}
+    solve = coord.last_solve
+    if launches != expect or not 0 < passes["value_grad"] \
+            < trained["passes"]["value_grad"]:
+        raise AssertionError(
+            f"stream_resume: launches {launches}, expected {expect} for "
+            f"{chunks} chunks and the resumed passes {passes}")
+    if not torch.equal(model.coefficients.means, want):
+        raise AssertionError("stream_resume: the resumed coefficients "
+                             "differ from stream_train's")
+    emit("stream_resume", card=card, rows=coord.dataset.num_rows,
+         chunks=chunks, killed_after=STREAM_KILL_AFTER,
+         iterations=solve["iterations"], killed_seconds=killed_s,
+         resumed_seconds=resumed_s, resumed_passes=passes,
+         uninterrupted_passes=trained["passes"], launches=launches,
+         save_seconds=saves, state_bytes=state_bytes, bit_identical=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3811,6 +4243,7 @@ def main() -> int:
     launches, flushes = phase_serve(np, torch, card)
     trained = phase_train(np, torch, card)
     re_checks = phase_re_rows(np, torch, trained)
+    resumed = phase_train_resume(np, torch, card, trained)
     re_launches = {"gather": trained["gathers"],
                    "scatter": trained["scatters"]}
     train4, val4 = trained.pop("train"), trained.pop("val")
@@ -3828,6 +4261,7 @@ def main() -> int:
     sparse_trained = phase_sparse_train(np, torch, card)
     ell_checks, rmatvec_checks = phase_ell_scatter(np, torch,
                                                    sparse_trained)
+    down_sampled = phase_sparse_down_sampled(np, torch, card, sparse_trained)
     sparse_launches = {"lbfgs": sparse_trained["launches"],
                        "tron": sparse_trained["tron_launches"]}
     train5, val5 = sparse_trained["train"], sparse_trained["val"]
@@ -3837,6 +4271,7 @@ def main() -> int:
     stream_trained = phase_stream_train(
         np, torch, card, train5.subset(slice(0, STREAM_ROWS)), val5)
     stream_checks = phase_stream_kernels(np, torch, stream_trained)
+    stream_resumed = phase_stream_resume(np, torch, card, stream_trained)
     stream_launches = stream_trained["launches"]
     del stream_trained
     torch.cuda.empty_cache()
@@ -3862,6 +4297,7 @@ def main() -> int:
     tron_hybrid_launches = phase_hybrid_parity(np, torch, card, parity)
     tron_hybrid_bf16_launches = phase_hybrid_parity(
         np, torch, card, parity, "bfloat16", "hybrid_bf16_parity")
+    ds_parity = phase_down_sampling_parity(np, torch, card, parity)
     phase_glm_train(np, torch, card)
     phase_glm_gradient_step(np, torch, card)
 
@@ -3894,7 +4330,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "photon_ml_torch/csrc/re_rows.cu",
             "replaces": f"photon_ml_tpu/ops/kernels/re_rows.py:{line}",
-            "launches": re_launches[key], "max_abs_err": 0.0,
+            "launches": re_launches[key],
+            "resume_launches": resumed[key + "s"], "max_abs_err": 0.0,
             "ms": m["ms"], "plain_ms": m[plain_key],
             "plain_timing": ("graph replay" if plain_key == "plain_ms" else
                              "per call from Python: the plain scatter reads "
@@ -3915,6 +4352,7 @@ def main() -> int:
         "hybrid_launches": hybrid_launches["ell_scatter"],
         "hybrid_bf16_launches": hybrid_bf16["launches"]["ell_scatter"],
         "stream_bf16_launches": stream_bf16["launches"]["ell_scatter"],
+        "stream_resume_launches": stream_resumed["ell_scatter"],
         "max_abs_err": max(c["max_abs_err"] for c in ell_checks),
         "parity_rel": max(c["parity_rel"] for c in ell_checks),
         "column_ratio": max(c["column_ratio"] for c in ell_checks),
@@ -3935,6 +4373,8 @@ def main() -> int:
         "launches": sparse_launches["lbfgs"],
         "tron_launches": sparse_launches["tron"],
         "hybrid_ell_launches": hybrid_ell_launches,
+        "down_sampled_launches": down_sampled["launches"],
+        "down_sampling_parity_launches": ds_parity["ell"]["ell_rmatvec"],
         "max_abs_err": max(c["max_abs_err"] for c in rmatvec_checks),
         "parity_rel": max(c["parity_rel"] for c in rmatvec_checks),
         "column_ratio": max(c["column_ratio"] for c in rmatvec_checks),
@@ -3969,6 +4409,7 @@ def main() -> int:
             "hybrid_launches": hybrid_launches[name],
             "stream_bf16_launches": stream_bf16["launches"][name],
             "hybrid_bf16_launches": hybrid_bf16["launches"][name],
+            "stream_resume_launches": stream_resumed[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "parity_rel": max(c["parity_rel"] for c in mine),
             "term_ratio": max(c["term_ratio"] for c in mine),
@@ -4000,6 +4441,8 @@ def main() -> int:
             "launches_on": ("hybrid_train's L-BFGS fit"
                             if name == "hot_value_and_gradient" else
                             "hybrid_parity's TRON fit"),
+            "down_sampling_parity_launches":
+                ds_parity["hybrid"][name],
             "max_abs_err": hot_pass_checks[name]["max_abs_err"],
             "parity_rel": hot_pass_checks[name]["parity_rel"],
             "column_ratio": hot_pass_checks[name]["column_ratio"],
@@ -4046,6 +4489,7 @@ def main() -> int:
         "replaces": "dev-scripts/exp_cold_gather.py:58",
         "launches": hybrid_launches["cold_grad"],
         "hybrid_bf16_launches": hybrid_bf16["launches"]["cold_grad"],
+        "down_sampling_parity_launches": ds_parity["hybrid"]["cold_grad"],
         "max_abs_err": max(c["max_abs_err"] for c in cold_checks),
         "parity_rel": max(c["parity_rel"] for c in cold_checks),
         "column_ratio": max(c["column_ratio"] for c in cold_checks),

@@ -13,22 +13,22 @@ layout by default, as the reference does on one device, or ELL) and
 unprojected random-effect coordinates on ``device`` (``cuda`` unless the
 caller passes ``"cpu"``), where the reference takes a mesh; with
 ``streaming=StreamingConfig(...)`` a sparse fixed effect becomes a
-row-streamed coordinate. Not ported yet, each raising and naming the
-slice that ports it: checkpoints, span traces, the run ledger,
-convergence watchdogs and the projected staging pipeline (slice 6),
-factored random effects, ``projector=RANDOM`` and gated sweeps (slice 8),
-and Avro ingestion (slice 9).
+row-streamed coordinate. ``fit(checkpoint_dir=)`` checkpoints each grid
+point's descent under ``<checkpoint_dir>/grid-<i>`` and resumes it on a
+rerun. Not ported yet, each raising and naming the slice that ports it:
+span traces, the run ledger, convergence watchdogs and the projected
+staging pipeline (slice 6), factored random effects, ``projector=RANDOM``
+and gated sweeps (slice 8), and Avro ingestion (slice 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import itertools
 import logging
+import os
 from typing import Optional
 
-import numpy as np
 import torch
 
 from photon_ml_torch import not_ported
@@ -40,6 +40,7 @@ from photon_ml_torch.data.game_data import GameDataset, SparseShard
 from photon_ml_torch.device import DeviceLike, resolve_device
 from photon_ml_torch.evaluation import evaluators as ev
 from photon_ml_torch.game import descent
+from photon_ml_torch.game.checkpoint import CheckpointManager
 from photon_ml_torch.game.coordinates import (
     FixedEffectCoordinate, RandomEffectCoordinate, SparseFixedEffectCoordinate,
     StreamingSparseFixedEffectCoordinate)
@@ -63,51 +64,6 @@ class GameResult:
     evaluation: Optional[ev.EvaluationResults]
     configs: dict[str, GLMOptimizationConfiguration]
     history: Optional[descent.CoordinateDescentHistory] = None
-
-
-def _feed_array(h, arr) -> None:
-    """Hash an array's bytes in place (no copy of a contiguous array);
-    None gets a marker so (None, x) never collides with (x, None)."""
-    if arr is None:
-        h.update(b"\x00none")
-        return
-    if isinstance(arr, torch.Tensor):
-        arr = arr.detach().cpu().numpy()
-    h.update(memoryview(np.ascontiguousarray(arr)).cast("B"))
-
-
-def dataset_digest(ds: GameDataset) -> str:
-    """Content digest of a GameDataset (responses, offsets, weights,
-    feature shards, entity assignments): anything that changes the
-    training objectives. Memoized on the dataset object, which is treated
-    as immutable once fitted (the coordinate cache's contract)."""
-    cached = getattr(ds, "_content_digest", None)
-    if cached is not None:
-        return cached
-    h = hashlib.sha1()
-    for arr in (ds.response, ds.offsets, ds.weights):
-        _feed_array(h, arr)
-    for sid in sorted(ds.feature_shards):
-        shard = ds.feature_shards[sid]
-        if isinstance(shard, SparseShard):
-            _feed_array(h, shard.indices)
-            _feed_array(h, shard.values)
-            h.update(str(shard.num_features).encode())
-        else:
-            _feed_array(h, shard)
-    for re_type in sorted(ds.entity_ids):
-        _feed_array(h, ds.entity_ids[re_type])
-    digest = h.hexdigest()
-    ds._content_digest = digest
-    return digest
-
-
-def normalization_digest(ctx: NormalizationContext) -> str:
-    h = hashlib.sha1()
-    _feed_array(h, ctx.factors)
-    _feed_array(h, ctx.shifts)
-    h.update(repr(ctx.intercept_index).encode())
-    return h.hexdigest()
 
 
 class GameEstimator:
@@ -293,24 +249,29 @@ class GameEstimator:
         bucketing, layouts) are built once; later grid points, and later
         fits on the same dataset content, swap only the optimization
         config.
+
+        With ``checkpoint_dir`` set, each grid point checkpoints its
+        coordinate-descent progress under ``<checkpoint_dir>/grid-<i>``
+        and a rerun with the same arguments resumes mid-descent (a
+        complete grid point returns its checkpointed model untrained).
         """
-        if checkpoint_dir is not None:
-            raise not_ported("checkpoint_dir (checkpoints and resume)", 6)
         if validation_data is not None:
             self._check_vocabularies(data, validation_data)
         cids = list(self.coordinate_configs)
         grids = [self.coordinate_configs[c].expand_grid() for c in cids]
         results: list[GameResult] = []
         base_coords: Optional[dict[str, object]] = None
-        for combo in itertools.product(*grids):
+        for grid_index, combo in enumerate(itertools.product(*grids)):
             opt_configs = dict(zip(cids, combo))
             if base_coords is None:
                 cache_key = (
-                    dataset_digest(data),
+                    descent._dataset_digest(data),
+                    tuple(sorted((s, data.shard_dim(s))
+                                 for s in data.feature_shards)),
                     tuple(sorted(data.num_entities.items())),
                     tuple(sorted(data.intercept_index.items())),
                     self.task, str(self.device),
-                    tuple(sorted((s, normalization_digest(ctx))
+                    tuple(sorted((s, descent.normalization_digest(ctx))
                                  for s, ctx in self.normalization.items())),
                     tuple((cid, self.coordinate_configs[cid].data)
                           for cid in cids))
@@ -330,13 +291,16 @@ class GameEstimator:
             if validation_data is not None and self.validation_evaluators:
                 def val_fn(m, _vd=validation_data):
                     return self._evaluate(m, _vd).metrics
+            manager = (CheckpointManager(
+                os.path.join(checkpoint_dir, f"grid-{grid_index}"))
+                if checkpoint_dir else None)
             model, history = descent.run(
                 self.task, coords,
                 descent.CoordinateDescentConfig(self.update_sequence,
                                                 self.descent_iterations),
                 initial_models=initial_models,
                 locked_coordinates=locked_coordinates,
-                validation_fn=val_fn)
+                validation_fn=val_fn, checkpoint_manager=manager)
             model = self._finalize_variances(model, coords, data)
             evaluation = (self._evaluate(model, validation_data)
                           if validation_data is not None else None)

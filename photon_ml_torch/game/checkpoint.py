@@ -1,0 +1,497 @@
+"""Checkpoint/restart for coordinate descent.
+
+Port of ``photon_ml_tpu/game/checkpoint.py``, with the reference's
+on-disk layout file for file, so either package reads the other's
+checkpoint. Reference parity: the Spark reference recovers from executor
+loss via RDD lineage re-execution; here, as in the JAX package, state is
+checkpointed explicitly after every (iteration, coordinate) update, and a
+restart resumes from the newest checkpoint.
+
+Layout under the checkpoint directory::
+
+    state.json            # progress counters + history + fingerprint
+                          # + per-artifact CRC32 map (the commit point)
+    state.json.prev       # the PREVIOUS committed state (recovery)
+    model/                # models/io.py GameModel directory (newest state)
+    <artifact>.prev       # previous generation of every file the newest
+                          # commit rewrote (hardlinks: one inode, no copy)
+    residuals.npz         # the descent loop's (n,) float32 score total at
+                          # the committed step: restoring it (instead of
+                          # re-summing per-coordinate scores, another
+                          # accumulation order) makes resume bit-exact
+    stream-step-{k}/      # StreamingStateStore of step k's streamed fit
+
+Crash consistency: every file write is atomic (tmp + ``os.replace``) and
+``state.json`` is the commit point, written last. A kill mid-save leaves
+either the previous state.json (the step is retrained on resume) or the
+new one. Every committed artifact's CRC32 rides in ``state.json``;
+``load`` verifies before trusting, and on a mismatch (or an unparseable
+state or model file) falls back to the previous committed generation
+(each save first hardlinks the files it rewrites to ``<name>.prev``),
+emits a ``CheckpointRecovered`` event and resumes from there. Both
+generations corrupt: train from scratch with a warning.
+
+Each save rewrites only the coordinates that changed. A configuration
+fingerprint (``game/descent._fingerprint``) is stored alongside and
+validated on load: a checkpoint written under a different configuration
+is discarded, not resumed.
+
+Left out of the port, each with the slice that brings it: the fault
+injection hooks (``faults.fire`` / ``faults.corrupt_file``, slices 9–10),
+the gated-sweep state (slice 8: ``descent.run(sweep=)`` raises), the
+span and metrics instrumentation (the observability item of slice 6),
+and the multi-host primary-rank gate (slice 9: the port runs in one
+process, which always writes).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import shutil
+import zlib
+from typing import Optional
+
+import numpy as np
+
+from photon_ml_torch.device import DeviceLike, resolve_device
+from photon_ml_torch.game.models import CoordinateModel
+from photon_ml_torch.models import io as model_io
+from photon_ml_torch.types import TaskType
+from photon_ml_torch.utils import events as ev_mod
+from photon_ml_torch.utils.diskio import atomic_write, file_crc32
+
+logger = logging.getLogger("photon_ml_torch.game")
+
+_STATE = "state.json"
+_MODEL = "model"
+_RESIDUALS = "residuals.npz"
+_PREV = ".prev"
+_STREAM_STATE = "stream_state.npz"
+_STREAM_META = "stream_meta.json"
+_STREAM_DIR = "stream-step-{step}"
+
+
+def _preserve_file(path: str) -> None:
+    """Keep the committed generation of ``path`` alive as ``path.prev``
+    before a rewrite. Hardlink (one inode, no copy); a filesystem
+    without hardlinks falls back to a copy."""
+    if not os.path.exists(path):
+        return
+    prev = path + _PREV
+    try:
+        os.unlink(prev)
+    except OSError:
+        pass  # absent or unremovable; os.link/copy below decides
+    try:
+        os.link(path, prev)
+    except OSError:
+        shutil.copy2(path, prev)
+
+
+@dataclasses.dataclass
+class CheckpointState:
+    """Restart state: the newest models + how far the loop got."""
+
+    models: dict[str, CoordinateModel]
+    done_steps: int  # completed (iteration, coordinate) updates (linear)
+    records: list[dict]  # CoordinateDescentHistory records so far
+    complete: bool  # descent finished; models are the final result
+    fingerprint: Optional[dict]  # config the checkpoint was written under
+    residual_total: Optional[np.ndarray] = None  # (n,) score total
+    recovered: bool = False  # True when this state came from the .prev
+    #                          generation after a corruption fallback
+
+
+class CheckpointManager:
+    """Save/restore coordinate-descent state under one directory."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        # Until this process has written one FULL snapshot, incremental
+        # saves are upgraded to full ones: a stale model directory left by
+        # a discarded or unrelated earlier run must not contaminate
+        # coordinates this run's `updated` lists have not touched yet.
+        self._full_snapshot_written = False
+        # rel artifact path → CRC32 of its committed bytes. Complete by
+        # construction: the first save of a process is a full snapshot.
+        self._crcs: dict[str, int] = {}
+
+    # -- path helpers --------------------------------------------------------
+
+    def _abs(self, rel: str) -> str:
+        return os.path.join(self.directory, rel.replace("/", os.sep))
+
+    def _preserve(self, rel: str) -> None:
+        _preserve_file(self._abs(rel))
+
+    def stream_dir(self, step: int) -> str:
+        """Directory for one descent step's mid-optimization streaming
+        state (StreamingStateStore): the streamed fixed-effect update
+        is the long unit at flagship scale, so it checkpoints inside the
+        step, not just between steps."""
+        return os.path.join(self.directory, _STREAM_DIR.format(step=step))
+
+    def _commit_file(self, rel: str) -> None:
+        """Record one just-written artifact's CRC."""
+        self._crcs[rel] = file_crc32(self._abs(rel))
+
+    # -- write -------------------------------------------------------------
+
+    def save(
+        self,
+        task: TaskType,
+        models: dict[str, CoordinateModel],
+        *,
+        done_steps: int,
+        records: list[dict],
+        complete: bool = False,
+        fingerprint: Optional[dict] = None,
+        updated: Optional[list[str]] = None,
+        residual_total: Optional[np.ndarray] = None,
+    ) -> None:
+        """Persist state. ``updated`` names the coordinates whose
+        coefficients changed since the last save (all, if None or if
+        this process has not written a full snapshot yet)."""
+        model_dir = os.path.join(self.directory, _MODEL)
+        os.makedirs(model_dir, exist_ok=True)
+        write_set = (set(models)
+                     if updated is None or not self._full_snapshot_written
+                     else set(updated))
+        meta = {}
+        for cid, m in models.items():
+            cmeta = model_io.coordinate_meta(m)
+            sub = ("fixed-effect" if cmeta["type"] == "fixed"
+                   else "random-effect")
+            rel = f"{_MODEL}/{sub}/{cid}/coefficients.npz"
+            if cid in write_set:
+                self._preserve(rel)
+                meta[cid] = model_io.save_coordinate(model_dir, cid, m)
+                self._commit_file(rel)
+            else:
+                meta[cid] = cmeta
+                if rel not in self._crcs and os.path.exists(self._abs(rel)):
+                    self._crcs[rel] = file_crc32(self._abs(rel))
+        meta_rel = f"{_MODEL}/metadata.json"
+        self._preserve(meta_rel)
+        model_io.write_metadata(model_dir, task, meta)
+        self._commit_file(meta_rel)
+        # Residuals before the commit point, atomically; stale files are
+        # removed rather than left to pair with a state they don't match.
+        res_path = os.path.join(self.directory, _RESIDUALS)
+        self._preserve(_RESIDUALS)
+        if residual_total is not None:
+            atomic_write(res_path, lambda f: np.savez(
+                f, total=np.asarray(residual_total)))
+            self._commit_file(_RESIDUALS)
+        else:
+            if os.path.exists(res_path):
+                os.remove(res_path)
+            self._crcs.pop(_RESIDUALS, None)
+        # Commit point: state.json last, atomically, carrying the CRC of
+        # every artifact this generation consists of.
+        self._preserve(_STATE)
+        state_body = json.dumps({
+            "done_steps": done_steps,
+            "records": records,
+            "complete": complete,
+            "fingerprint": fingerprint,
+            "artifacts": self._crcs,
+        }, indent=2)
+        atomic_write(os.path.join(self.directory, _STATE),
+                     lambda f: f.write(state_body.encode()))
+        self._full_snapshot_written = True
+        logger.info("checkpoint committed: %d step(s) -> %s", done_steps,
+                    self.directory)
+
+    # -- read --------------------------------------------------------------
+
+    def _read_state(self, path: str) -> Optional[dict]:
+        """Parse one state file; unreadable/unparseable → None (a
+        corruption signal for the caller, never an exception)."""
+        if not os.path.exists(path):
+            return None
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, ValueError) as e:
+            logger.warning("checkpoint state %s is unreadable (%s: %s)",
+                           path, type(e).__name__, e)
+            return None
+
+    def _bad_artifacts(self, state: dict) -> list[str]:
+        """Artifacts of ``state`` whose on-disk bytes fail their
+        committed CRC32 (missing counts as failed). Checkpoints from
+        layouts without CRCs verify vacuously."""
+        bad = []
+        for rel, want in (state.get("artifacts") or {}).items():
+            try:
+                ok = file_crc32(self._abs(rel)) == want
+            except OSError:
+                ok = False
+            if not ok:
+                bad.append(rel)
+        return bad
+
+    def _recover(self) -> Optional[dict]:
+        """Fall back to the previous committed generation: restore every
+        ``.prev`` artifact the previous state's CRC map vouches for, then
+        re-verify. Returns the recovered state, or None when the previous
+        generation is unusable too (→ train from scratch)."""
+        prev_state_path = os.path.join(self.directory, _STATE + _PREV)
+        prev = self._read_state(prev_state_path)
+        if prev is None:
+            return None
+        for rel, want in (prev.get("artifacts") or {}).items():
+            path = self._abs(rel)
+            try:
+                if os.path.exists(path) and file_crc32(path) == want:
+                    continue  # current file already IS the prev content
+                prev_file = path + _PREV
+                if (os.path.exists(prev_file)
+                        and file_crc32(prev_file) == want):
+                    os.replace(prev_file, path)
+            except OSError as e:
+                logger.warning("checkpoint recovery could not restore %s "
+                               "(%s: %s)", rel, type(e).__name__, e)
+        if self._bad_artifacts(prev):
+            return None
+        # The previous generation is now THE committed generation.
+        os.replace(prev_state_path, os.path.join(self.directory, _STATE))
+        return prev
+
+    def _corrupt(self, reason: str) -> None:
+        logger.error("checkpoint at %s is corrupt (%s) and the previous "
+                     "generation is unusable — training from scratch",
+                     self.directory, reason)
+
+    def load(self, expected_fingerprint: Optional[dict] = None,
+             device: Optional[DeviceLike] = None
+             ) -> Optional[CheckpointState]:
+        """Return the committed state, or None if absent or written under a
+        different configuration than ``expected_fingerprint``. The models
+        land on ``device`` (``cuda`` unless the caller passes ``"cpu"``);
+        the residual total stays host numpy.
+
+        Verifies every artifact's CRC32 first. Corruption (CRC mismatch,
+        unparseable state.json, an unloadable model file) triggers ONE
+        fallback to the previous committed generation, logged and
+        announced with a ``CheckpointRecovered`` event; if that
+        generation is unusable too, returns None (train from scratch).
+        """
+        device = resolve_device(device)
+        state_path = os.path.join(self.directory, _STATE)
+        if not os.path.exists(state_path) \
+                and not os.path.exists(state_path + _PREV):
+            return None
+        state = self._read_state(state_path)
+        recovered = False
+        reason = ""
+        if state is not None:
+            bad = self._bad_artifacts(state)
+            if bad:
+                reason = f"artifact CRC mismatch: {sorted(bad)}"
+                state = None
+        else:
+            reason = "state.json unreadable"
+        if state is None:
+            state = self._recover()
+            recovered = state is not None
+            if not recovered:
+                self._corrupt(reason or "no committed state")
+                return None
+        saved_fp = state.get("fingerprint")
+        if (expected_fingerprint is not None and saved_fp is not None
+                and saved_fp != expected_fingerprint):
+            logger.warning(
+                "checkpoint at %s was written under a different "
+                "configuration — discarding it and training from scratch "
+                "(saved=%s expected=%s)",
+                self.directory, saved_fp, expected_fingerprint)
+            return None
+        model_dir = os.path.join(self.directory, _MODEL)
+        try:
+            game = model_io.load_game_model(model_dir, device=device)
+        except Exception as e:
+            # CRC-less layouts (or a corrupt file both generations
+            # share): one recovery attempt, then give up cleanly.
+            if recovered:
+                logger.error("recovered checkpoint at %s still does not "
+                             "load (%s: %s) — training from scratch",
+                             self.directory, type(e).__name__, e)
+                return None
+            reason = f"model load failed: {type(e).__name__}: {e}"
+            state = self._recover()
+            if state is None:
+                self._corrupt(reason)
+                return None
+            recovered = True
+            saved_fp = state.get("fingerprint")
+            try:
+                game = model_io.load_game_model(model_dir, device=device)
+            except Exception as e2:
+                logger.error("recovered checkpoint at %s still does not "
+                             "load (%s: %s) — training from scratch",
+                             self.directory, type(e2).__name__, e2)
+                return None
+        if recovered:
+            logger.warning(
+                "checkpoint at %s was corrupt (%s); recovered the "
+                "previous committed generation (%d step(s)) — the lost "
+                "step retrains on resume",
+                self.directory, reason, int(state["done_steps"]))
+            ev_mod.default_emitter.emit(ev_mod.CheckpointRecovered(
+                directory=self.directory,
+                done_steps=int(state["done_steps"]),
+                reason=reason))
+        residual_total = None
+        res_path = os.path.join(self.directory, _RESIDUALS)
+        if os.path.exists(res_path):
+            try:
+                with np.load(res_path) as z:
+                    residual_total = z["total"]
+            except Exception as e:
+                # Descent re-sums scores when residuals are unusable:
+                # correct, just not bit-exact (descent logs that path).
+                logger.warning(
+                    "checkpoint residuals at %s are unreadable (%s: %s) "
+                    "— falling back to re-summation", res_path,
+                    type(e).__name__, e)
+        # Seed the CRC ledger so this process's next incremental save
+        # carries forward the artifacts it does not rewrite.
+        self._crcs = dict(state.get("artifacts") or {})
+        return CheckpointState(
+            models=dict(game.models),
+            done_steps=int(state["done_steps"]),
+            records=list(state["records"]),
+            complete=bool(state["complete"]),
+            fingerprint=saved_fp,
+            residual_total=residual_total,
+            recovered=recovered,
+        )
+
+
+class StreamingStateStore:
+    """Mid-L-BFGS state for the streamed fixed-effect coordinate, under
+    the checkpoint discipline above: atomic writes, a CRC32-carrying
+    commit marker written LAST, and two generations via ``.prev``
+    hardlinks.
+
+    Layout under the store directory (one per descent step, from
+    ``CheckpointManager.stream_dir``)::
+
+        stream_state.npz       # optim/streaming.snapshot_state arrays
+        stream_meta.json       # CRC32 + fingerprint + iteration (COMMIT)
+        <both>.prev            # the previous committed generation
+
+    A kill between the npz and meta writes leaves a newer npz with an
+    older meta: ``load`` trusts the meta (the commit point) and falls back
+    to the ``.prev`` npz its CRC vouches for; the torn iteration re-runs
+    on resume. Corruption of one generation degrades to the previous one
+    (CheckpointRecovered event); both gone → None, and the coordinate
+    re-optimizes the step from its warm start.
+    """
+
+    def __init__(self, directory: str):
+        self.directory = directory
+
+    # -- write -------------------------------------------------------------
+
+    def save(self, state: dict, fingerprint: Optional[dict] = None) -> None:
+        """Persist one iteration snapshot. What must match on load rides
+        in ``fingerprint``. The meta's ``environment`` keeps the
+        reference's layout: one process on one device here."""
+        os.makedirs(self.directory, exist_ok=True)
+        path = os.path.join(self.directory, _STREAM_STATE)
+        _preserve_file(path)
+        arrays = {k: np.asarray(v) for k, v in state.items()}
+        atomic_write(path, lambda f: np.savez(f, **arrays))
+        crc = file_crc32(path)
+        meta_path = os.path.join(self.directory, _STREAM_META)
+        _preserve_file(meta_path)
+        atomic_write(meta_path, lambda f: f.write(json.dumps({
+            "crc": crc,
+            "iteration": int(state["it"]),
+            "fingerprint": fingerprint,
+            "environment": {"num_devices": 1},
+        }).encode()))
+        logger.debug("stream state committed: iteration %d -> %s",
+                     int(state["it"]), self.directory)
+
+    # -- read --------------------------------------------------------------
+
+    def _read_meta(self, path: str) -> Optional[dict]:
+        if not os.path.exists(path):
+            return None
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, ValueError) as e:
+            logger.warning("stream meta %s unreadable (%s: %s)", path,
+                           type(e).__name__, e)
+            return None
+
+    def _load_generation(self, meta: Optional[dict]) -> Optional[dict]:
+        """The npz whose CRC the given meta vouches for: the current
+        file, or its ``.prev`` (a kill between npz and meta writes)."""
+        if meta is None:
+            return None
+        path = os.path.join(self.directory, _STREAM_STATE)
+        for cand in (path, path + _PREV):
+            try:
+                if os.path.exists(cand) and \
+                        file_crc32(cand) == int(meta["crc"]):
+                    with np.load(cand, allow_pickle=False) as z:
+                        return {k: z[k] for k in z.files}
+            except (OSError, ValueError, KeyError, zlib.error) as e:
+                logger.warning("stream state %s unusable (%s: %s)", cand,
+                               type(e).__name__, e)
+        return None
+
+    def load(self, expected_fingerprint: Optional[dict] = None
+             ) -> Optional[dict]:
+        """The newest committed snapshot, or None (absent, corrupt in
+        both generations, or written under a different fingerprint: the
+        step then re-optimizes from its warm start)."""
+        meta_path = os.path.join(self.directory, _STREAM_META)
+        meta = self._read_meta(meta_path)
+        state = self._load_generation(meta)
+        recovered = False
+        if state is None:
+            prev = self._read_meta(meta_path + _PREV)
+            state = self._load_generation(prev)
+            if state is None:
+                if meta is not None or prev is not None:
+                    logger.error(
+                        "stream checkpoint at %s is corrupt in both "
+                        "generations — the step re-optimizes from its "
+                        "warm start", self.directory)
+                return None
+            meta = prev
+            recovered = True
+        saved_fp = meta.get("fingerprint")
+        if (expected_fingerprint is not None and saved_fp is not None
+                and saved_fp != expected_fingerprint):
+            logger.warning(
+                "stream checkpoint at %s was written under a different "
+                "configuration — discarding (saved=%s expected=%s)",
+                self.directory, saved_fp, expected_fingerprint)
+            return None
+        if recovered:
+            logger.warning(
+                "stream checkpoint at %s was corrupt; recovered the "
+                "previous committed generation (iteration %d) — the torn "
+                "iteration re-runs", self.directory,
+                int(meta["iteration"]))
+            ev_mod.default_emitter.emit(ev_mod.CheckpointRecovered(
+                directory=self.directory,
+                done_steps=int(meta["iteration"]),
+                reason="stream state CRC mismatch"))
+        return state
+
+    def clear(self) -> None:
+        """Remove the store (the step committed; its mid-step state is
+        stale and must not leak into a later run's resume)."""
+        shutil.rmtree(self.directory, ignore_errors=True)

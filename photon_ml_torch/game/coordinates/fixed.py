@@ -2,7 +2,9 @@
 
 Port of ``photon_ml_tpu/game/coordinates/fixed.py`` on one device: the
 solve is ``optim/problem.run`` where the reference runs its mesh-parallel
-twin (``parallel/problem.run``). Down-sampling is not ported yet.
+twin (``parallel/problem.run``). Down-sampling draws its subsets on the
+host with the reference's generator (``game/sampling.py``) and gathers the
+sampled rows on the device, in their stored dtype.
 """
 
 from __future__ import annotations
@@ -10,12 +12,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
-from photon_ml_torch import not_ported
 from photon_ml_torch.data.batch import LabeledBatch, check_feature_dtype
 from photon_ml_torch.data.game_data import GameDataset
 from photon_ml_torch.device import DeviceLike, resolve_device
+from photon_ml_torch.game.coordinates._down_sampling import (
+    _advance_down_sampling, draw_down_sample)
 from photon_ml_torch.game.models import FixedEffectModel
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.normalization import NormalizationContext
@@ -41,15 +45,19 @@ class FixedEffectCoordinate:
     passes ``"cpu"``), the features in ``feature_dtype`` (float32 or
     bfloat16; see ``ops/aggregators.py`` for the float32-accumulation
     contract).
+
+    ``config.down_sampling_rate < 1`` fits each ``train_model`` on a
+    subset drawn from a generator seeded with ``down_sampling_seed``
+    (reference: DownSampler), one draw per call.
     """
 
     def __init__(self, dataset: GameDataset, shard_id: str,
                  loss: PointwiseLoss, config: GLMOptimizationConfiguration,
                  norm: NormalizationContext = NormalizationContext(),
+                 down_sampling_seed: int = 0,
                  feature_dtype: str = "float32",
                  device: Optional[DeviceLike] = None):
         self.device = resolve_device(device)
-        self._check_config(config)
         check_feature_dtype(feature_dtype)
         self.dataset = dataset
         self.shard_id = shard_id
@@ -57,17 +65,14 @@ class FixedEffectCoordinate:
         self.config = config
         self.norm = norm.to(self.device)
         self.intercept_index = dataset.intercept_index.get(shard_id)
+        self._down_sampling_seed = down_sampling_seed
+        self._rng = np.random.default_rng(down_sampling_seed)
         self.feature_dtype = feature_dtype
         # Scoring reuses the staged features: no second copy of X.
         self._staged = LabeledBatch.build(
             dataset.feature_shards[shard_id], dataset.response,
             dataset.weights, feature_dtype=feature_dtype,
             device=self.device)
-
-    @staticmethod
-    def _check_config(config: GLMOptimizationConfiguration) -> None:
-        if config.down_sampling_rate < 1.0:
-            raise not_ported("down-sampling", 6)
 
     @property
     def dim(self) -> int:
@@ -77,12 +82,13 @@ class FixedEffectCoordinate:
             self, config: GLMOptimizationConfiguration
     ) -> "FixedEffectCoordinate":
         """Cheap copy with a new optimization config, sharing the staged
-        tensors."""
+        tensors. Its generator is fresh and identically seeded, so every
+        grid point trains on the SAME down-sampled subsets."""
         import copy
 
-        self._check_config(config)
         c = copy.copy(self)
         c.config = config
+        c._rng = np.random.default_rng(self._down_sampling_seed)
         return c
 
     def _batch(self, offsets) -> LabeledBatch:
@@ -99,7 +105,20 @@ class FixedEffectCoordinate:
                           device=self.device))
         cfg = dataclasses.replace(
             self.config, variance_computation=VarianceComputationType.NONE)
-        coef, _ = problem.run(self.loss, self._batch(offsets), cfg,
+        batch = self._batch(offsets)
+        rate = self.config.down_sampling_rate
+        if rate < 1.0:
+            # Reference: DownSampler subsamples the coordinate's data each
+            # training pass, rescaling weights by 1/rate. The draw is on
+            # the host; the rows are gathered on the device.
+            idx, mult = draw_down_sample(self, rate)
+            idx = torch.from_numpy(idx).to(self.device)
+            mult = torch.from_numpy(mult).to(self.device)
+            batch = LabeledBatch(features=batch.features[idx],
+                                 labels=batch.labels[idx],
+                                 weights=batch.weights[idx] * mult,
+                                 offsets=batch.offsets[idx])
+        coef, _ = problem.run(self.loss, batch, cfg,
                               initial=Coefficients(w0), norm=self.norm,
                               intercept_index=self.intercept_index)
         raw = Coefficients(self.norm.model_to_original_space(coef.means))
@@ -132,3 +151,9 @@ class FixedEffectCoordinate:
         return FixedEffectModel(
             shard_id=self.shard_id,
             coefficients=Coefficients.zeros(self.dim, device=self.device))
+
+    def advance_down_sampling(self, steps: int) -> None:
+        """Fast-forward the down-sampling generator past ``steps``
+        completed train_model calls (checkpoint resume must subsample the
+        remaining steps exactly as the uninterrupted run would have)."""
+        _advance_down_sampling(self, steps)

@@ -19,8 +19,15 @@ Two layouts, as in the reference:
 (``ops/hybrid_sparse.py``); the ELL layout ignores it, as the
 reference's does.
 
-Not ported yet, each raising if asked for: ``feature_sharded=True`` and
-the data-sharded hybrid layout are slice 9; down-sampling is slice 6.
+``config.down_sampling_rate < 1`` draws one subset a ``train_model``
+on the host with the reference's generator (``game/sampling.py``). ELL
+gathers the sampled rows on the device and builds their column layout
+there for the ``ell_rmatvec`` kernel, once a draw; the hybrid layout
+masks the weights instead (dropped rows weigh 0, kept rows carry the
+rate's multiplier), so its hot block and cold classes stay as staged.
+
+Not ported yet, raising if asked for: ``feature_sharded=True`` and the
+data-sharded hybrid layout are slice 9.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from photon_ml_torch.data.batch import check_feature_dtype
 from photon_ml_torch.data.game_data import GameDataset, SparseShard
 from photon_ml_torch.data.sparse import SparseBatch
 from photon_ml_torch.device import DeviceLike, resolve_device
+from photon_ml_torch.game.coordinates._down_sampling import (
+    _advance_down_sampling, draw_down_sample)
 from photon_ml_torch.game.models import FixedEffectModel
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.ops import hybrid_sparse
@@ -66,7 +75,9 @@ class SparseFixedEffectCoordinate:
     (``hybrid=False``), and on a card the column layout the
     ``ell_scatter`` kernels read. Per coordinate-descent step only the
     (n,) offsets and the warm start move. ``last_solve`` describes the
-    latest ``train_model`` solve; ``staging_seconds`` what staging took.
+    latest ``train_model`` solve (and, down-sampled, the sampled rows and
+    the seconds the sampled batch took to build); ``staging_seconds``
+    what staging took.
 
     Normalization is not supported here (the reference normalizes dense
     shards only).
@@ -75,6 +86,7 @@ class SparseFixedEffectCoordinate:
     def __init__(self, dataset: GameDataset, shard_id: str,
                  loss: PointwiseLoss, config: GLMOptimizationConfiguration,
                  feature_sharded: bool = False,
+                 down_sampling_seed: int = 0,
                  hybrid: Optional[bool] = None,
                  feature_dtype: str = "float32",
                  device: Optional[DeviceLike] = None):
@@ -93,13 +105,14 @@ class SparseFixedEffectCoordinate:
         if feature_sharded:
             raise not_ported("feature_sharded=True", 9)
         block_dtype = check_feature_dtype(feature_dtype)
-        self._check_config(config)
         self.device = resolve_device(device)
         self.dataset = dataset
         self.shard_id = shard_id
         self.loss = loss
         self.config = config
         self.intercept_index = dataset.intercept_index.get(shard_id)
+        self._down_sampling_seed = down_sampling_seed
+        self._rng = np.random.default_rng(down_sampling_seed)
         self._dim = int(shard.num_features)
         self.last_solve: Optional[dict] = None
         t0 = time.perf_counter()
@@ -128,11 +141,6 @@ class SparseFixedEffectCoordinate:
         # layout of its scatter): paid once per coordinate.
         self.staging_seconds = time.perf_counter() - t0
 
-    @staticmethod
-    def _check_config(config: GLMOptimizationConfiguration) -> None:
-        if config.down_sampling_rate < 1.0:
-            raise not_ported("down-sampling", 6)
-
     @property
     def dim(self) -> int:
         return self._dim
@@ -148,18 +156,37 @@ class SparseFixedEffectCoordinate:
             self, config: GLMOptimizationConfiguration
     ) -> "SparseFixedEffectCoordinate":
         """Cheap copy with a new optimization config, sharing the staged
-        batch and its layout."""
+        batch and its layout. Its generator is fresh and identically
+        seeded, so every grid point draws the same subsets."""
         import copy
 
-        self._check_config(config)
         c = copy.copy(self)
         c.config = config
+        c._rng = np.random.default_rng(self._down_sampling_seed)
         c.last_solve = None
         return c
 
     def _batch(self, offsets):
         return dataclasses.replace(self._staged, offsets=torch.as_tensor(
             offsets, dtype=torch.float32, device=self.device))
+
+    def _sampled_batch(self, batch, rate: float):
+        """One down-sampling draw applied to ``batch`` (offsets set), and
+        the rows drawn: ELL gathers the sampled rows (and, on a card,
+        builds their column layout); hybrid masks the weights, as the
+        reference does."""
+        idx, mult = draw_down_sample(self, rate)
+        idx = torch.from_numpy(idx).to(self.device)
+        mult = torch.from_numpy(mult).to(self.device)
+        if self.hybrid:
+            w = torch.zeros_like(batch.weights)
+            w[idx] = batch.weights[idx] * mult
+            return dataclasses.replace(batch, weights=w), len(idx)
+        return SparseBatch(
+            indices=batch.indices[idx], values=batch.values[idx],
+            labels=batch.labels[idx], weights=batch.weights[idx] * mult,
+            offsets=batch.offsets[idx],
+            num_features=batch.num_features).to(self.device), len(idx)
 
     def train_model(self, offsets,
                     initial: Optional[FixedEffectModel] = None
@@ -170,15 +197,23 @@ class SparseFixedEffectCoordinate:
         cfg = dataclasses.replace(
             self.config, variance_computation=VarianceComputationType.NONE)
         stats = sparse_problem.SolveStats()
+        batch = self._batch(offsets)
+        sampled = {}
+        rate = self.config.down_sampling_rate
+        if rate < 1.0:
+            t0 = time.perf_counter()
+            batch, rows = self._sampled_batch(batch, rate)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            sampled = {"sample_seconds": time.perf_counter() - t0,
+                       "sampled_rows": rows}
         if self.hybrid:
             coef, res = sparse_problem.run_hybrid(
-                self.loss, self._batch(offsets), cfg,
-                initial=Coefficients(w0),
+                self.loss, batch, cfg, initial=Coefficients(w0),
                 intercept_index_permuted=self._ii_perm, stats=stats)
         else:
             coef, res = sparse_problem.run(
-                self.loss, self._batch(offsets), cfg,
-                initial=Coefficients(w0),
+                self.loss, batch, cfg, initial=Coefficients(w0),
                 intercept_index=self.intercept_index, stats=stats)
         self.last_solve = {
             "optimizer": resolve_optimizer_config(
@@ -187,7 +222,8 @@ class SparseFixedEffectCoordinate:
             "iterations": int(res.iterations[0]),
             "converged": bool(res.converged[0]),
             "gradient_evaluations": stats.gradient_evaluations,
-            "hessian_vector_products": stats.hessian_vector_products}
+            "hessian_vector_products": stats.hessian_vector_products,
+            **sampled}
         return FixedEffectModel(shard_id=self.shard_id,
                                 coefficients=Coefficients(coef.means))
 
@@ -232,3 +268,7 @@ class SparseFixedEffectCoordinate:
         return FixedEffectModel(
             shard_id=self.shard_id,
             coefficients=Coefficients.zeros(self.dim, device=self.device))
+
+    def advance_down_sampling(self, steps: int) -> None:
+        """See FixedEffectCoordinate.advance_down_sampling."""
+        _advance_down_sampling(self, steps)

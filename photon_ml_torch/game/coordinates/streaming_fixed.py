@@ -18,22 +18,31 @@ scores) arrives as the ``offsets`` argument of ``train_model``, and
 Not supported on the streamed path (the reference raises too):
 normalization, down-sampling, SIMPLE/FULL variances. Not ported yet,
 each raising and naming the slice that ports it: the stochastic solvers
-``solver="sdca"|"sgd"`` (slice 7), meshes (slice 9) and mid-fit
-checkpoints (``bind_step_checkpoint``, slice 6). Chunks are stored in
-float32, bfloat16 or int8 (``ops/streaming_sparse.py``).
+``solver="sdca"|"sgd"`` (slice 7) and meshes (slice 9). Chunks are stored
+in float32, bfloat16 or int8 (``ops/streaming_sparse.py``).
+
+Mid-fit checkpoints: ``game/descent.run`` with a checkpoint manager binds
+a ``StreamingStateStore`` per step (``bind_step_checkpoint``); the fit
+then saves its L-BFGS state after every accepted iteration and, bound to
+a store that holds a snapshot of the same step and objective, resumes
+from it.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
 import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from photon_ml_torch import not_ported
 from photon_ml_torch.device import DeviceLike, resolve_device
+from photon_ml_torch.game.checkpoint import StreamingStateStore
+from photon_ml_torch.game.descent import _jsonable
 from photon_ml_torch.game.models import FixedEffectModel
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.ops import streaming_sparse as ss
@@ -147,6 +156,10 @@ class StreamingSparseFixedEffectCoordinate:
         self.pin_seconds = time.perf_counter() - t0
         self.staging_seconds: Optional[float] = None  # set by stage()
         self._padded_n = chunked.num_chunks * chunked.chunk_rows
+        # Mid-optimization checkpoint binding (game/descent.py wires the
+        # checkpoint manager's per-step stream directory through here).
+        self._ckpt_store = None
+        self._ckpt_step = None
 
     @classmethod
     def stage(
@@ -202,16 +215,48 @@ class StreamingSparseFixedEffectCoordinate:
         c = copy.copy(self)
         c.config = config
         c.last_solve = None
+        c._ckpt_store = None
+        c._ckpt_step = None
         return c
 
     @property
     def dim(self) -> int:
         return self.chunked.dim
 
+    # -- mid-optimization checkpointing -----------------------------------
+
     def bind_step_checkpoint(self, directory: str, step: int) -> None:
-        """Mid-fit checkpoints of the streamed solve: not ported yet."""
-        raise not_ported("mid-fit checkpoints of the streamed fixed "
-                         "effect (bind_step_checkpoint)", 6)
+        """Arm mid-L-BFGS checkpointing for the NEXT train_model call
+        (game/descent.py binds one directory per descent step)."""
+        self._ckpt_store = StreamingStateStore(directory)
+        self._ckpt_step = step
+
+    def clear_step_checkpoint(self) -> None:
+        """Drop the committed step's mid-step state (descent calls this
+        after the step-level checkpoint commits: stale stream state must
+        not leak into a later step's resume)."""
+        if self._ckpt_store is not None:
+            self._ckpt_store.clear()
+        self._ckpt_store = None
+        self._ckpt_step = None
+
+    def _stream_fingerprint(self, offsets: Tensor, w0: Tensor,
+                            solver: str) -> dict:
+        """What a mid-step snapshot must agree on to be resumable: the
+        step, the optimizer config, the solver, and digests of the
+        residual offsets and the warm start (the objective the snapshot
+        was taken under). The reference's dict, key for key."""
+        h = hashlib.sha1()
+        h.update(np.ascontiguousarray(offsets.cpu().numpy()).tobytes())
+        h.update(np.ascontiguousarray(w0.cpu().numpy()).tobytes())
+        return {
+            "step": self._ckpt_step,
+            "shard": self.shard_id,
+            "config": _jsonable(self.config),
+            "dim": self.dim,
+            "solver": solver,
+            "objective_digest": h.hexdigest(),
+        }
 
     def _pad_offsets(self, offsets) -> Tensor:
         offsets = torch.as_tensor(offsets, dtype=torch.float32,
@@ -237,9 +282,24 @@ class StreamingSparseFixedEffectCoordinate:
         v = with_l2_value(lambda w: self._v(w, off), l2, mask)
         l1w = (l1_weights_vector(l1, self.dim, self.intercept_index,
                                  device=self.device) if l1 else None)
+        checkpoint_save = None
+        resume_state = None
+        if self._ckpt_store is not None:
+            store = self._ckpt_store
+            fp = self._stream_fingerprint(off, w0, self.solver)
+            resume_state = store.load(expected_fingerprint=fp)
+            if resume_state is not None:
+                self._log(f"resuming streamed fit from iteration "
+                          f"{int(resume_state['it'])} checkpoint")
+
+            def checkpoint_save(state, _store=store, _fp=fp):
+                _store.save(state, fingerprint=_fp)
+
         before = dict(self.stream.passes)
         result = minimize_streaming(vg, w0, self.config.optimizer,
                                     log=self._log, value_only=v,
+                                    checkpoint_save=checkpoint_save,
+                                    resume_state=resume_state,
                                     l1_weights=l1w)
         passes = {k: self.stream.passes[k] - before[k] for k in before}
         self.last_solve = {

@@ -1,0 +1,90 @@
+"""Training lifecycle events: emitter and listener registry.
+
+Port of ``photon_ml_tpu/utils/events.py``. Reference parity: photon-lib
+``event/`` (the PhotonMLEvent hierarchy and the EventEmitter trait that
+training programs consume for audit logging and progress reporting): plain
+dataclass events dispatched synchronously, so a listener is just a
+callable. Listeners must be cheap and non-failing; a raising listener is
+logged and detached rather than killing training.
+
+The events here are the ones the ported paths emit (coordinate descent
+and checkpoint recovery), with the reference's field names; the others
+come with the slices that emit them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable, Optional
+
+logger = logging.getLogger("photon_ml_torch.events")
+
+
+@dataclasses.dataclass(frozen=True)
+class Event:
+    """Base class for all training events (PhotonMLEvent parity)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainingStart(Event):
+    task: str
+    update_sequence: tuple
+    iterations: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinateUpdate(Event):
+    """One (iteration, coordinate) block update finished
+    (PhotonOptimizationLogEvent parity)."""
+
+    iteration: int
+    coordinate: str
+    train_seconds: float
+    validation: Optional[dict] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainingFinish(Event):
+    task: str
+    total_updates: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointRecovered(Event):
+    """A corrupted checkpoint artifact failed its CRC and the manager
+    fell back to the previous committed generation (game/checkpoint.py).
+    ``done_steps`` is the step count of the RECOVERED state."""
+
+    directory: str
+    done_steps: int
+    reason: str
+
+
+class EventEmitter:
+    """Synchronous listener registry (EventEmitter trait parity)."""
+
+    def __init__(self):
+        self._listeners: list[Callable[[Event], None]] = []
+
+    def register(self, listener: Callable[[Event], None]) -> None:
+        self._listeners.append(listener)
+
+    def unregister(self, listener: Callable[[Event], None]) -> None:
+        self._listeners.remove(listener)
+
+    def emit(self, event: Event) -> None:
+        for listener in list(self._listeners):
+            try:
+                listener(event)
+            except Exception:
+                logger.exception(
+                    "event listener %r failed on %r — detaching it",
+                    listener, event)
+                if listener in self._listeners:  # may have self-unregistered
+                    self._listeners.remove(listener)
+
+
+# Process-wide default emitter: programs and libraries emit here unless
+# handed an explicit one.
+default_emitter = EventEmitter()

@@ -232,7 +232,7 @@ def test_dense_game_fit_matches_reference():
     ({"staging_cache_dir": "cache"}, 6), ({"trace": object()}, 6),
     ({"ledger_dir": "ledger"}, 6), ({"watchdog": object()}, 6),
     ({"sweep": object()}, 8), ({"ingest": object()}, 9),
-    ("checkpoint_dir", 6), ("factored", 8), ("random_projector", 8)])
+    ("factored", 8), ("random_projector", 8)])
 def test_unported_options_raise(option, slice_no):
     opt, _ = _opt()
     coords = {"ctr": CoordinateConfiguration(
@@ -255,5 +255,42 @@ def test_unported_options_raise(option, slice_no):
         ds.entity_ids["userId"] = np.zeros(50, np.int32)
         ds.num_entities["userId"] = 1
         ds.feature_shards["re_userId"] = np.ones((50, 2), np.float32)
-        est.fit(ds, checkpoint_dir="ckpt" if option == "checkpoint_dir"
-                else None)
+        est.fit(ds)
+
+
+def test_checkpoint_dir_resumes_grid_like_reference(tmp_path):
+    """fit(checkpoint_dir=) on the config-5 fixture's 2-point grid: each
+    grid point checkpoints under grid-<i> in the reference's format, a
+    second fit resumes both complete points without training (the same
+    bits), and the reference's estimator resumes the port's checkpoints
+    to models within TOL of the port's."""
+    n = 2000
+    b, _ = sparse.synthetic_sparse(n, 300, 16, seed=17)
+    rb, _ = ref_sparse.synthetic_sparse(n, 300, 16, seed=17)
+    opt, ref_opt = _opt(iterations=30)
+    est = GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {"ctr": CoordinateConfiguration(
+            FixedEffectDataConfiguration("global", hybrid=False), opt,
+            reg_weight_grid=GRID)}, ["ctr"], device="cpu")
+    ckpt = str(tmp_path / "ck")
+    first = est.fit(from_sparse_batch(b), checkpoint_dir=ckpt)
+    for i in range(len(GRID)):
+        with open(tmp_path / "ck" / f"grid-{i}" / "state.json") as f:
+            assert f.read().count('"complete": true') == 1
+    again = est.fit(from_sparse_batch(b), checkpoint_dir=ckpt)
+    for a, r in zip(first, again):
+        assert np.array_equal(
+            a.model.models["ctr"].coefficients.means.numpy(),
+            r.model.models["ctr"].coefficients.means.numpy())
+        assert "solver" in r.history.records[0]  # the checkpointed record
+    ref_est = RefEstimator(
+        RefTaskType.LOGISTIC_REGRESSION,
+        {"ctr": ref_configs.CoordinateConfiguration(
+            ref_configs.FixedEffectDataConfiguration("global", hybrid=False),
+            ref_opt, reg_weight_grid=GRID)},
+        ["ctr"], make_mesh(num_data=1, devices=jax.devices()[:1]))
+    resumed = ref_est.fit(ref_from_sparse_batch(rb), checkpoint_dir=ckpt)
+    for a, r in zip(first, resumed):
+        _close(a.model.models["ctr"].coefficients.means,
+               r.model.models["ctr"].coefficients.means, tol=0.0)

@@ -9,7 +9,9 @@ the default, and ``hybrid=True``): ``train_model`` from the same offsets
 with L2 (L-BFGS), with L1 (OWL-QN), and with TRON, ``score``, and SIMPLE
 variances. Tolerance 5e-3 on coefficients and variances (the band for
 full solves): the scatter sums run in another order, and each solve
-stops on float32 tests. A model the reference
+stops on float32 tests. Down-sampled fits (rate 0.5, seed 9) on both
+layouts draw the reference's subsets and are held to the same band. A
+model the reference
 trained crosses into the port through ``game_model_from_arrays`` and
 scores the shard identically. bfloat16 storage stores the hybrid hot
 block in bfloat16 (the same band against the reference's bfloat16
@@ -266,18 +268,27 @@ def test_hybrid_simple_variances_match_reference(data):
                                   full.config)
 
 
-@pytest.mark.parametrize("option", ["down_sampling"])
 @pytest.mark.parametrize("hybrid", [None, True])
-def test_hybrid_unported_options_raise(data, option, hybrid):
-    cfg, _ = _configs("LBFGS", "L2", 1.0)
-    kw = {"hybrid": hybrid}
-    if option == "down_sampling":
-        cfg = dataclasses.replace(cfg, down_sampling_rate=0.5)
-    else:
-        kw.update(option)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        SparseFixedEffectCoordinate(data[0], "global", losses.LOGISTIC, cfg,
-                                    device="cpu", **kw)
+def test_hybrid_down_sampling_matches_reference(data, hybrid):
+    """down_sampling_rate 0.5 on the hybrid layout (weights masked, the
+    block as staged) against the reference's, seed 9: two draws, each
+    within TOL of the reference's fit on the same subset."""
+    ds, rds, offsets = data
+    cfg, ref_cfg = _configs("LBFGS", "L2", 1.0)
+    cfg = dataclasses.replace(cfg, down_sampling_rate=0.5)
+    ref_cfg = dataclasses.replace(ref_cfg, down_sampling_rate=0.5)
+    coord = SparseFixedEffectCoordinate(ds, "global", losses.LOGISTIC, cfg,
+                                        hybrid=hybrid, down_sampling_seed=9,
+                                        device="cpu")
+    ref = RefCoordinate(rds, "global", ref_losses.LOGISTIC, ref_cfg,
+                        _mesh(), hybrid=hybrid, down_sampling_seed=9)
+    assert coord.hybrid and ref.hybrid
+    for _ in range(2):
+        model = coord.train_model(offsets)
+        _close(model.coefficients.means,
+               ref.train_model(jnp.asarray(offsets)).coefficients.means)
+    assert coord.staged.weights.eq(1.0).all()  # the staged batch untouched
+    assert 0 < coord.last_solve["sampled_rows"] < N
 
 
 @pytest.mark.parametrize("hybrid", [None, True])
@@ -338,18 +349,39 @@ def test_hybrid_with_feature_sharded_raises(data):
 
 
 @pytest.mark.parametrize("option,slice_no", [
-    ({"feature_sharded": True}, 9), ("down_sampling", 6)])
+    ({"feature_sharded": True}, 9)])
 def test_unported_options_raise(data, option, slice_no):
     ds = data[0]
     cfg, _ = _configs("LBFGS", "L2", 1.0)
     kw = {"hybrid": False}
-    if option == "down_sampling":
-        cfg = dataclasses.replace(cfg, down_sampling_rate=0.5)
-    else:
-        kw.update(option)
+    kw.update(option)
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         SparseFixedEffectCoordinate(ds, "global", losses.LOGISTIC, cfg,
                                     device="cpu", **kw)
+
+
+def test_ell_down_sampling_matches_reference(data):
+    """down_sampling_rate 0.5 on ELL (the sampled rows gathered into a
+    batch of their own) against the reference's, seed 9: two draws, each
+    within TOL of the reference's fit on the same subset; the staged
+    batch keeps every row."""
+    ds, rds, offsets = data
+    cfg, ref_cfg = _configs("LBFGS", "L2", 1.0)
+    cfg = dataclasses.replace(cfg, down_sampling_rate=0.5)
+    ref_cfg = dataclasses.replace(ref_cfg, down_sampling_rate=0.5)
+    coord = SparseFixedEffectCoordinate(ds, "global", losses.LOGISTIC, cfg,
+                                        hybrid=False, down_sampling_seed=9,
+                                        device="cpu")
+    ref = RefCoordinate(rds, "global", ref_losses.LOGISTIC, ref_cfg,
+                        _mesh(), hybrid=False, down_sampling_seed=9)
+    for _ in range(2):
+        model = coord.train_model(offsets)
+        _close(model.coefficients.means,
+               ref.train_model(jnp.asarray(offsets)).coefficients.means)
+    y = np.asarray(ds.response)
+    assert coord.last_solve["sampled_rows"] == \
+        int((y > 0).sum()) + int(round(int((y <= 0).sum()) * 0.5))
+    assert coord.staged.num_rows == N
 
 
 def test_dense_shard_refused_and_cuda_default(data):

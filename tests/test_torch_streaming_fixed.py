@@ -10,11 +10,14 @@ the plain kernels), and by the port's resident
 band for full solves), under L2 (L-BFGS) and elastic net (OWL-QN); both
 keep the optimum unique, which an L1-only fit over tail columns seen in
 one or two rows need not. ``GameEstimator(streaming=...)`` routes the sparse
-fixed effect onto the streamed path and fits; every option this slice
-leaves out raises and names the slice that ports it.
+fixed effect onto the streamed path and fits; a descent killed mid-fit
+resumes from the streamed coordinate's step checkpoint to the same bits;
+every option this slice leaves out raises and names the slice that ports
+it.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -231,8 +234,6 @@ def test_coordinate_refusals(data):
             device="cpu")
     coord = StreamingSparseFixedEffectCoordinate(
         ds, good, "global", losses.LOGISTIC, cfg, device="cpu")
-    with pytest.raises(NOT_PORTED, match="slice 6"):
-        coord.bind_step_checkpoint("/nonexistent", 0)
     with pytest.raises(ValueError, match="down-sampling"):
         coord.with_optimization_config(dataclasses.replace(
             cfg, down_sampling_rate=0.5))
@@ -257,3 +258,68 @@ def test_config_swap_shares_the_stream(data):
     solve, passes = swapped.last_solve, coord.stream.passes
     assert solve["gradient_evaluations"] == passes["value_grad"] >= 1
     assert solve["value_evaluations"] == passes["value"]
+
+
+class Killed(Exception):
+    """A simulated kill (an exception of its own: an interrupt escaping a
+    test would stop the whole pytest run)."""
+
+
+def test_bind_step_checkpoint_resumes_mid_fit(data, tmp_path, monkeypatch):
+    """descent.run with a checkpoint manager binds the streamed fit's
+    per-step store (bind_step_checkpoint): killed in the first update
+    after 3 accepted iterations, the descent resumes that update mid-fit
+    and runs the second, to the bits of an uninterrupted run; the
+    reference's descent reads the final checkpoint as complete, and its
+    own streamed descent lands within TOL."""
+    from photon_ml_torch.game.checkpoint import (CheckpointManager,
+                                                 StreamingStateStore)
+    from photon_ml_tpu.game.checkpoint import \
+        CheckpointManager as RefCheckpointManager
+
+    ds, rds = data
+    cfg, ref_cfg = _configs()
+    seq = descent.CoordinateDescentConfig(["fixed"], iterations=2)
+    clean, clean_hist = descent.run(TaskType.LOGISTIC_REGRESSION,
+                                    {"fixed": _stage(ds, cfg, "int8")}, seq)
+    coord = _stage(ds, cfg, "int8")
+    saves = []
+    save = StreamingStateStore.save
+
+    def failing_save(store, state, **kw):
+        saves.append(os.path.basename(store.directory))
+        if saves.count("stream-step-1") == 4:
+            raise Killed("simulated kill")
+        save(store, state, **kw)
+
+    manager = CheckpointManager(str(tmp_path / "ck"))
+    with monkeypatch.context() as m:
+        m.setattr(StreamingStateStore, "save", failing_save)
+        with pytest.raises(Killed):
+            descent.run(TaskType.LOGISTIC_REGRESSION, {"fixed": coord}, seq,
+                        checkpoint_manager=manager)
+    assert manager.load(device="cpu") is None  # no step committed
+    assert os.path.isdir(tmp_path / "ck" / "stream-step-1")
+    model, hist = descent.run(TaskType.LOGISTIC_REGRESSION,
+                              {"fixed": coord}, seq,
+                              checkpoint_manager=manager)
+    w = model.models["fixed"].coefficients.means
+    assert w.numpy().tobytes() == \
+        clean.models["fixed"].coefficients.means.numpy().tobytes()
+    # The resumed leg skipped the 3 committed iterations' gradient passes
+    # and the initial one.
+    solves = [r["solver"] for r in hist.records]
+    clean_solves = [r["solver"] for r in clean_hist.records]
+    assert solves[0]["gradient_evaluations"] == \
+        clean_solves[0]["gradient_evaluations"] - 4
+    assert solves[1] == clean_solves[1]
+    assert not [p for p in os.listdir(tmp_path / "ck")
+                if p.startswith("stream-step")]
+    assert RefCheckpointManager(str(tmp_path / "ck")).load().complete
+    ref = RefCoordinate.stage(
+        rds, "global", ref_losses.LOGISTIC, ref_cfg, None,
+        RefStreamingConfig(feature_dtype="int8", **STREAMING))
+    ref_model, _ = ref_descent.run(
+        RefTaskType.LOGISTIC_REGRESSION, {"fixed": ref},
+        ref_descent.CoordinateDescentConfig(["fixed"], iterations=2))
+    _close(w, ref_model.models["fixed"].coefficients.means)

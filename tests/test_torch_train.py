@@ -415,19 +415,34 @@ def test_coordinates_raise_without_cuda(data):
 
 
 @pytest.mark.parametrize("option", ["projection", "subspace", "ratio",
-                                    "staging_cache", "down_sampling"])
+                                    "staging_cache"])
 def test_unported_options_raise(data, option):
     train = data[0]
     kw = {"projection": {"projection": True},
           "subspace": {"subspace_model": True},
           "ratio": {"features_to_samples_ratio": 0.5},
-          "staging_cache": {"staging_cache_dir": "cache"}}.get(option)
+          "staging_cache": {"staging_cache_dir": "cache"}}[option]
     with pytest.raises(NotImplementedError, match="slice 6"):
-        if kw is None:
-            FixedEffectCoordinate(
-                train, "global", losses.LOGISTIC,
-                dataclasses.replace(CFG, down_sampling_rate=0.5),
-                device="cpu")
-        else:
-            RandomEffectCoordinate(train, "userId", "re_userId",
-                                   losses.LOGISTIC, CFG, device="cpu", **kw)
+        RandomEffectCoordinate(train, "userId", "re_userId",
+                               losses.LOGISTIC, CFG, device="cpu", **kw)
+
+
+def test_fixed_effect_down_sampling_matches_reference(data):
+    """down_sampling_rate 0.5 on the config-4 fixed effect: the port draws
+    the reference's subsets (the binary sampler, seed 4) and gathers them
+    on the device; two updates from the same offsets, each within TOL of
+    the reference's, and a descent of both packages within TOL."""
+    train, _, ref_train, _ = data
+    cfg = dataclasses.replace(CFG, down_sampling_rate=0.5)
+    ref_cfg = dataclasses.replace(REF_CFG, down_sampling_rate=0.5)
+    port = FixedEffectCoordinate(train, "global", losses.LOGISTIC, cfg,
+                                 down_sampling_seed=4, device="cpu")
+    ref = RefFixedEffectCoordinate(ref_train, "global", ref_losses.LOGISTIC,
+                                   ref_cfg, make_mesh(), down_sampling_seed=4)
+    off = _offsets(train.num_rows, 1)
+    first = []
+    for _ in range(2):
+        got = port.train_model(off).coefficients.means
+        _close(got, ref.train_model(jnp.asarray(off)).coefficients.means)
+        first.append(got)
+    assert not torch.equal(*first)  # another draw, another subset
