@@ -123,7 +123,12 @@ code is non-zero:
              each output within 1e-5 · Σ|terms| of its exact (float64)
              value, parity_rel within 1e-3, the same bits on two
              launches. Times kernel, plain version and library call(s)
-             at the streamed chunk.
+             at the streamed chunk. Every float32 block on the route its
+             shape picks (stream_fused.route): the main chunk and a
+             1,003-row block (no multiple of a tile or of 512) on the
+             ring, the main chunk copied 4 bytes off 16-byte alignment
+             (hot_margins bit for bit the ring's), the ragged shape and a
+             2,048 x 8,196 block direct; int8 and bfloat16 direct.
 12. hybrid_train — config 5's one-device default, the hybrid hot/cold
              layout: the first 4,750,000 of those training rows (2,000,000
              where the host or the card cannot hold what staging needs;
@@ -204,6 +209,9 @@ code is non-zero:
              5e-3 of the resident fit's after 10 iterations, every
              streamed evaluation replayed on the CPU, and int8 storage's
              validation AUC within 5e-3 of float32's after 20 iterations.
+             hot_margins and hot_rmatvec launches read around the two
+             float32 fits alone equal the chunks times their passes, all
+             on the ring route.
 16. hybrid_parity — those 300,000 rows in the hybrid layout on the card
              and on the CPU: every coefficient within 5e-3 after 10
              iterations, every card evaluation of that fit replayed on the
@@ -2150,8 +2158,8 @@ def check_stream_kernel(torch, sf, name, X, vec, base, label: str,
     n, h = (int(x) for x in X.shape)
     dtype = str(X.dtype).replace("torch.", "")
     row = {"kernel": name, "shape": label, "n": n, "H": h, "dtype": dtype,
-           "max_abs_err": err, "parity_rel": rel, "term_ratio": ratio,
-           "bit_exact": err == 0.0}
+           "route": sf.route(X.contiguous()), "max_abs_err": err,
+           "parity_rel": rel, "term_ratio": ratio, "bit_exact": err == 0.0}
     if not timed:
         return row
     # Bytes the function must move: X once, the (n,) and (H,) vectors
@@ -2177,13 +2185,29 @@ def check_stream_kernel(torch, sf, name, X, vec, base, label: str,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": nbytes})
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     return row
+
+
+def misaligned_copy(torch, X):
+    """X copied 4 bytes into a larger buffer: contiguous, its base not on
+    16 bytes, so stream_fused.route sends it direct."""
+    buf = torch.empty(X.numel() + 4, dtype=X.dtype, device=X.device)
+    view = buf[1:1 + X.numel()].view(X.shape)
+    view.copy_(X)
+    return view
 
 
 def phase_stream_kernels(np, torch, trained: dict) -> list[dict]:
     """hot_margins and hot_rmatvec at the streamed chunk (the fit's own
     int8 chunk, and that chunk dequantised to float32 and bfloat16), on
-    the padded tail chunk, at a ragged shape and on integer inputs."""
+    the padded tail chunk, at a ragged shape and on integer inputs. The
+    float32 blocks on both routes: the main chunk on the ring and, copied
+    off 16-byte alignment, on the direct route (hot_margins the same
+    bits), ring blocks whose rows are no multiple of a tile or of 512 at
+    widths that reach each of the ring kernels' instantiations (their
+    hot_margins the bits of their misaligned copies), the ragged shape
+    and a block wider than the ring takes, direct."""
     from photon_ml_torch.ops import streaming_sparse as ss
     from photon_ml_torch.ops.kernels import stream_fused as sf
 
@@ -2214,12 +2238,46 @@ def phase_stream_kernels(np, torch, trained: dict) -> list[dict]:
         for name, vec in (("hot_margins", w), ("hot_rmatvec", r)):
             rows.append(check_stream_kernel(torch, sf, name, X, vec, base,
                                             "main", True))
-    del main, X32
+    # The same float32 chunk on the direct route: hot_margins keeps the
+    # ring's bits.
+    X32d = misaligned_copy(torch, X32)
+    for name, vec in (("hot_margins", w32), ("hot_rmatvec", r)):
+        rows.append(check_stream_kernel(torch, sf, name, X32d, vec, base,
+                                        "main, misaligned copy", False))
+    ring_m, direct_m = (sf.hot_margins(X, w32, base) for X in (X32, X32d))
+    rows[-2]["bits_equal_ring_route"] = bool(torch.equal(ring_m, direct_m))
+    del main, X32, X32d, ring_m, direct_m
     tail, w_hot, base, r = inputs(coord.chunked.chunks[-1])
     rows += [check_stream_kernel(torch, sf, name, tail.X_hot, vec, base,
                                  "tail chunk", False)
              for name, vec in (("hot_margins", w_hot), ("hot_rmatvec", r))]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # float32 off the main shape: ring rows no multiple of a tile or of
+    # 512, at widths that reach each of the ring's rmatvec instantiations
+    # (64, 96, 192: 8, 4 and 2 splits of a tile's rows; 516, 4000, 8192:
+    # 2, 8 and 16 column vectors a thread; 512 and the hybrid block's
+    # 1,772: 1 and 4), each hot_margins bit for bit its misaligned copy's
+    # (direct route); and rows wider than the ring takes.
+    for n, h, label in ((1003, STREAM_NUM_HOT, "ring, odd rows"),
+                        (1003, 64, "ring, odd rows"),
+                        (1003, 96, "ring, odd rows"),
+                        (1030, 192, "ring, odd rows"),
+                        (1030, 516, "ring, odd rows"),
+                        (777, 4000, "ring, odd rows"),
+                        (515, sf.MAX_COLUMNS, "ring, odd rows"),
+                        (2048, sf.MAX_COLUMNS + 4, "wide")):
+        X = torch.randn((n, h), generator=gen, device="cuda")
+        X[torch.rand((n, h), generator=gen, device="cuda") < 0.6] = 0.0
+        w, b, rr = (torch.randn(s, generator=gen, device="cuda")
+                    for s in (h, n, n))
+        rows.append(check_stream_kernel(torch, sf, "hot_margins", X, w, b,
+                                        label, False))
+        if label != "wide":
+            rows[-1]["bits_equal_ring_route"] = bool(torch.equal(
+                sf.hot_margins(misaligned_copy(torch, X), w, b),
+                sf.hot_margins(X, w, b)))
+        rows.append(check_stream_kernel(torch, sf, "hot_rmatvec", X, rr,
+                                        None, label, False))
     for n, h, integer in ((1000, 37, False), (STREAM_CHUNK_ROWS // 4,
                                                 STREAM_NUM_HOT, True)):
         lo, hi = (-8, 9) if integer else (-127, 128)
@@ -2241,6 +2299,19 @@ def phase_stream_kernels(np, torch, trained: dict) -> list[dict]:
             rows.append(check_stream_kernel(torch, sf, "hot_rmatvec", X, rr,
                                             None, label, False, integer))
     emit("kernels", kernel="stream_fused", checks=len(rows), shapes=rows)
+    # Each float32 block on the route its shape picks.
+    want = {"main": "ring", "main, misaligned copy": "direct",
+            "ring, odd rows": "ring", "ragged": "direct", "wide": "direct"}
+    expected = [want.get(c["shape"]) if c["dtype"] == "float32"
+                else "direct" for c in rows]
+    wrong = [(c["kernel"], c["shape"], c["dtype"], c["route"])
+             for c, e in zip(rows, expected) if e not in (None, c["route"])]
+    if wrong or not all(c.get("bits_equal_ring_route", True)
+                        for c in rows):
+        raise AssertionError(
+            f"stream_fused: float32 routes {wrong} (expected {want}); "
+            f"hot_margins on the direct route the ring's bits: "
+            f"{[c.get('bits_equal_ring_route') for c in rows]}")
     return rows
 
 
@@ -2277,13 +2348,38 @@ class StreamEvaluationLog:
         self.ss.make_value_and_gradient = self.inner
 
 
-def phase_stream_parity(np, torch, card: str, parity: dict) -> None:
+class RouteLog:
+    """Counts the routes stream_fused's wrappers take while it is open:
+    each wrapper asks ``route`` once a launch on the card."""
+
+    def __init__(self, sf):
+        self.sf = sf
+        self.inner = sf.route
+        self.counts = {}
+
+    def __enter__(self):
+        def counted(X):
+            taken = self.inner(X)
+            self.counts[taken] = self.counts.get(taken, 0) + 1
+            return taken
+
+        self.sf.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.sf.route = self.inner
+
+
+def phase_stream_parity(np, torch, card: str, parity: dict) -> dict:
     """sparse_parity's 300,000 rows streamed on the card, in chunks of
     STREAM_PARITY_CHUNK_ROWS with two pinned: against the resident fit
     after PARITY_EARLY_ITERATIONS iterations (every coefficient within
     PARITY_TOL), every streamed evaluation replayed on the CPU, and int8
-    storage's validation AUC against float32's."""
+    storage's validation AUC against float32's. hot_margins and
+    hot_rmatvec launches are read around the two float32 fits alone
+    (chunks times passes, every one on the ring route); returns them."""
     from photon_ml_torch.ops import streaming_sparse as ss
+    from photon_ml_torch.ops.kernels import stream_fused as sf
 
     train, val = parity["train"], parity["val"]
 
@@ -2302,13 +2398,30 @@ def phase_stream_parity(np, torch, card: str, parity: dict) -> None:
                 est.coordinates["ctr"])
 
     log = StreamEvaluationLog(ss)
-    early = fit("float32", PARITY_EARLY_ITERATIONS, log)
+    sf.hot_margins.launches = 0  # the float32 fits' run starts
+    sf.hot_rmatvec.launches = 0
+    with RouteLog(sf) as routes:
+        early = fit("float32", PARITY_EARLY_ITERATIONS, log)
+        full_f32 = fit("float32", STREAM_ITERATIONS)
+    f32_launches = {"hot_margins": sf.hot_margins.launches,  # ... and ends
+                    "hot_rmatvec": sf.hot_rmatvec.launches}
+    want = {"hot_margins": 0, "hot_rmatvec": 0}
+    for c in (early[4], full_f32[4]):
+        want["hot_margins"] += c.chunked.num_chunks * sum(
+            c.stream.passes.values())
+        want["hot_rmatvec"] += c.chunked.num_chunks * \
+            c.stream.passes["value_grad"]
+    if f32_launches != want or routes.counts != {
+            "ring": sum(want.values())}:
+        raise AssertionError(
+            f"stream_parity: float32 launches {f32_launches}, expected "
+            f"{want} (chunks times passes); routes {routes.counts}, "
+            f"expected all on the ring")
     coord = early[4]
     replays = [replay_gaps(torch, value, grad, stream_replay(
         torch, coord.chunked, coord.loss, w, offsets))
         for w, offsets, value, grad in log.calls]
-    full = {dtype: fit(dtype, STREAM_ITERATIONS)
-            for dtype in ("float32", "int8")}
+    full = {"float32": full_f32, "int8": fit("int8", STREAM_ITERATIONS)}
     early_diff = float((early[0] - parity["early_cuda"]).abs().max())
     auc_diff = abs(full["int8"][1] - full["float32"][1])
     replay = {"evaluations": len(replays),
@@ -2326,6 +2439,7 @@ def phase_stream_parity(np, torch, card: str, parity: dict) -> None:
                  **{k: v[2] for k, v in full.items()}},
          fit_seconds={"early float32": early[3],
                       **{k: v[3] for k, v in full.items()}},
+         float32_launches=f32_launches, float32_routes=routes.counts,
          tolerance=PARITY_TOL)
     if replay["evaluations"] != early[2]["gradient_evaluations"]:
         raise AssertionError(
@@ -2340,6 +2454,7 @@ def phase_stream_parity(np, torch, card: str, parity: dict) -> None:
             f"iterations {early_diff} from the resident fit and int8 AUC "
             f"{auc_diff} from float32 (limit {PARITY_TOL}); replay "
             f"{replay}")
+    return {"launches": f32_launches, "routes": routes.counts}
 
 
 # -- hybrid_train ----------------------------------------------------------
@@ -2958,10 +3073,11 @@ def fused_pass_times(torch, hs, sf, hp, loss, hb, a: dict) -> dict:
 
 def hot_block_times(torch, hs, sf, hp, loss, hb, w_perm, v_perm) -> dict:
     """The hybrid fit's float32 hot block at its final iterate: the fused
-    passes (fused_pass_times); hot_margins and hot_rmatvec alone against
-    torch.addmv and torch.mv on X.t(), each beside its bound; and, for
-    what holds the pass back, the tile ring's depth against its time and
-    the pass with its transposed product left out (a build of its own)."""
+    passes (fused_pass_times); hot_margins and hot_rmatvec alone (and the
+    route they take) against torch.addmv and torch.mv on X.t(), each
+    beside its bound; and, for what holds the pass back, the tile ring's
+    depth against its time and the pass with its transposed product left
+    out (a build of its own)."""
     a = hot_pass_inputs(hs, hb, w_perm, v_perm)
     X, off, w_hot = a["X"], a["offsets"], a["w_hot"]
     n, h = (int(x) for x in X.shape)
@@ -2976,7 +3092,8 @@ def hot_block_times(torch, hs, sf, hp, loss, hb, w_perm, v_perm) -> dict:
         got, want = kernel(), library()
         nbytes = x_bytes + vectors * 4
         out[name] = {
-            "n": n, "H": h, "parity_rel": float((got - want).abs().max())
+            "n": n, "H": h, "route": sf.route(X),
+            "parity_rel": float((got - want).abs().max())
             / max(float(want.abs().max()), 1e-9),
             "ms": device_ms(torch, kernel, reps=5, inner=3),
             "library_ms": device_ms(torch, library, reps=5, inner=3),
@@ -4293,7 +4410,7 @@ def main() -> int:
     del stream_bf16["coord"], train5, val5
     torch.cuda.empty_cache()
     parity = phase_sparse_parity(np, torch, card)
-    phase_stream_parity(np, torch, card, parity)
+    stream_parity_f32 = phase_stream_parity(np, torch, card, parity)
     tron_hybrid_launches = phase_hybrid_parity(np, torch, card, parity)
     tron_hybrid_bf16_launches = phase_hybrid_parity(
         np, torch, card, parity, "bfloat16", "hybrid_bf16_parity")
@@ -4396,11 +4513,14 @@ def main() -> int:
                   f"slots (sparse_train gradient)"),
         "checks": len(rmatvec_checks)})
     # The stream_fused rows report the fit's own int8 chunk; the float32
-    # and bfloat16 timings of the same chunk ride beside them.
+    # (ring route) and bfloat16 timings of the same chunk ride beside
+    # them, with the float32 launches of stream_parity's fits.
     for name, line in (("hot_margins", 61), ("hot_rmatvec", 112)):
         mine = [c for c in stream_checks if c["kernel"] == name]
         main8 = next(c for c in mine if c["shape"] == "main"
                      and c["dtype"] == "int8")
+        main32 = next(c for c in mine if c["shape"] == "main"
+                      and c["dtype"] == "float32")
         table.append({
             "name": name, "route": "cuda",
             "source": "photon_ml_torch/csrc/stream_fused.cu",
@@ -4422,7 +4542,15 @@ def main() -> int:
                       f"chunk)"),
             "by_dtype": {c["dtype"]: {k: c[k] for k in (
                 "ms", "call_ms", "plain_ms", "library_ms", "library_call",
-                "bound_ms")} for c in mine if c["shape"] == "main"},
+                "bound_ms", "bound_share", "route")}
+                for c in mine if c["shape"] == "main"},
+            "float32": {k: main32[k] for k in (
+                "ms", "library_ms", "bound_ms", "bound_share", "route")},
+            "stream_parity_f32_launches":
+                stream_parity_f32["launches"][name],
+            "stream_parity_f32_routes": stream_parity_f32["routes"],
+            "routes": {f"{c['shape']} {c['n']}x{c['H']} {c['dtype']}":
+                       c["route"] for c in mine},
             "hybrid_block": hybrid_hot[name],
             "checks": len(mine)})
     # The hybrid block's fused pass (rows 5-6 of the table, redesigned):

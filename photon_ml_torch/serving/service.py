@@ -259,26 +259,27 @@ class ScoringService:
             raise
 
     def _flush(self, entries):
-        t_flush0 = time.monotonic()  # same clock as _Entry.enqueued_at
         try:
             scores, marks = self._score_chunk([e.request for e in entries])
         except Exception:
             self.metrics.record_flush_error()
             raise
-        self._attribute(entries, t_flush0, marks)
+        self._attribute(entries, marks)
         return scores
 
-    def _attribute(self, entries, t_flush0: float, marks) -> None:
+    def _attribute(self, entries, marks) -> None:
         """Per-request latency attribution for one flush: every request
         in the flush experienced the flush's assemble/device/respond
-        walls plus its own queue wait, so its stages sum to its total."""
-        t_a0, t_d0, t_d1 = marks
+        walls plus its own queue wait, which lasts until the flush's
+        assembly starts (the wait for the scoring lock included), so its
+        stages sum to its total."""
+        t_a0, t_d0, t_d1 = marks  # same clock as _Entry.enqueued_at
         t_done = time.monotonic()
         assemble_s = t_d0 - t_a0
         device_s = t_d1 - t_d0
         respond_s = t_done - t_d1
         for e in entries:
-            queue_wait_s = max(t_flush0 - e.enqueued_at, 0.0)
+            queue_wait_s = max(t_a0 - e.enqueued_at, 0.0)
             total_s = t_done - e.enqueued_at
             attr = {
                 "request_id": e.request_id,

@@ -306,6 +306,37 @@ def test_http_score_metrics_slo_healthz(model_dir):
         t.join(timeout=10)
 
 
+def test_attribution_sums_to_total_when_the_flush_waits(model_dir):
+    """A flush that waits for the scoring lock (another flush holds it,
+    or the GIL goes elsewhere between the flush's start and assembly)
+    still attributes every millisecond: the wait is queue_wait, and the
+    four stages sum to total_ms up to their 4-decimal rounding."""
+    svc = ScoringService(tio.load_game_model(model_dir), device="cpu",
+                         max_batch=4, max_wait_ms=1.0, entity_vocabs=VOCABS)
+    held, submitted = threading.Event(), threading.Event()
+
+    def hold():  # the lock, until 20 ms after the request is queued
+        with svc._lock:
+            held.set()
+            submitted.wait(timeout=5.0)
+            time.sleep(0.02)
+
+    try:
+        threading.Thread(target=hold).start()
+        held.wait(timeout=5.0)
+        fut = svc.submit(_port_requests(_request_dicts(
+            np.random.default_rng(4), n=1))[0])
+        submitted.set()
+        fut.result(timeout=30)
+        attr = fut.attribution
+    finally:
+        svc.close()
+    stages = sum(attr[k] for k in ("queue_wait_ms", "assemble_ms",
+                                   "device_score_ms", "respond_ms"))
+    assert attr["queue_wait_ms"] >= 20.0  # it waited for the lock
+    assert stages == pytest.approx(attr["total_ms"], abs=0.01)
+
+
 def test_metric_names_are_the_references(model_dir):
     """The port's /metrics exposition names only metrics the reference
     exposes too."""

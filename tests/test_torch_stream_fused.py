@@ -215,26 +215,101 @@ def test_only_cpu_tensors_reach_the_plain_version():
     assert (sf.hot_margins.launches, sf.hot_rmatvec.launches) == before
 
 
+def _misaligned(X):
+    """X copied 4 bytes into a larger buffer: contiguous, its base not on
+    16 bytes."""
+    buf = torch.empty(X.numel() + 4, dtype=X.dtype, device=X.device)
+    view = buf[1:1 + X.numel()].view(X.shape)
+    view.copy_(X)
+    return view
+
+
+@pytest.mark.parametrize("dtype,h,misaligned,want", [
+    ("float32", 512, False, "ring"), ("float32", 4, False, "ring"),
+    ("float32", 1772, False, "ring"),
+    ("float32", sf.MAX_COLUMNS, False, "ring"),
+    ("float32", 37, False, "direct"), ("float32", 6, False, "direct"),
+    ("float32", 512, True, "direct"),
+    ("float32", sf.MAX_COLUMNS + 4, False, "direct"),
+    ("int8", 512, False, "direct"), ("bfloat16", 512, False, "direct")])
+def test_route_rule(dtype, h, misaligned, want):
+    """The ring takes float32 rows of whole 16-byte vectors, within the
+    width limit, from a 16-byte aligned base; everything else goes
+    direct. The rule reads the shape and the pointer alone."""
+    X = torch.zeros((3, h), dtype=getattr(torch, dtype))
+    if misaligned:
+        X = _misaligned(X)
+        assert X.is_contiguous() and X.data_ptr() % 16 == 4
+    assert sf.route(X) == want
+
+
+def test_ring_shape_fits_a_block():
+    """Every width the ring takes gets a geometry the kernels accept, for
+    either kernel's ring: 1 to 8 rows a tile dividing the 512-row group,
+    2 to 8 tiles, and dynamic shared memory within a block's."""
+    for stages in (sf.MARGINS_STAGES, sf.RMATVEC_STAGES):
+        for h in range(4, sf.MAX_COLUMNS + 1, 4):
+            rows, got = sf.ring_shape(h, stages)
+            assert 1 <= rows <= sf.MAX_ROWS and sf.ROW_GROUP % rows == 0, h
+            assert got == stages and 2 <= got <= sf.MAX_STAGES, h
+            assert sf.shared_bytes(h, rows, got) <= sf.MAX_SHARED, h
+    # The streamed chunk, the hybrid block, the limit.
+    for h, margins, rmatvec in ((512, (8, 3), (8, 2)),
+                                (1772, (8, 3), (8, 2)),
+                                (sf.MAX_COLUMNS, (2, 3), (2, 2))):
+        assert sf.ring_shape(h, sf.MARGINS_STAGES) == margins
+        assert sf.ring_shape(h, sf.RMATVEC_STAGES) == rmatvec
+
+
+@pytest.mark.parametrize("n,groups", [(1, 1), (511, 1), (512, 1),
+                                      (513, 2), (1024, 2), (1025, 3),
+                                      (262_144, 512)])
+def test_partial_rows(n, groups):
+    """hot_rmatvec's partial sums: one row a 512-row group, the last
+    group short."""
+    assert sf.partial_rows(n) == groups
+
+
 def test_kernels_match_plain_on_cuda():
     """On a card: each kernel within 1e-5 of Σ|terms| of its exact value
     and within PARITY_REL of its plain version, bit-exact on integer
     fixtures, the same bits on two launches, for every storage dtype and
-    a ragged shape."""
+    a ragged shape; float32 blocks on both routes (fewer rows than a
+    tile, rows not a multiple of 512, a width for each instantiation of
+    the ring's rmatvec kernel, the widest ring rows and beyond), and the
+    ring's hot_margins bit for bit the direct route's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the stream_fused kernels have no "
                     "CPU mode (chip_smoke.py holds them on the card)")
     rng = np.random.default_rng(5)
-    for dtype in DTYPES:
-        for (n, h), integer in (((4097, 512), False), ((1000, 37), False),
-                                ((2048, 96), True)):
-            x, xt, _ = _codes(rng, n, h, dtype, integer=integer)
-            w, base, r = (_vec(rng, s, integer) for s in (h, n, n))
-            X = xt.cuda()
-            wt, bt, rt = (torch.from_numpy(a).cuda() for a in (w, base, r))
+    cases = [(dtype, shape, integer) for dtype in DTYPES
+             for shape, integer in (((4097, 512), False),
+                                    ((1000, 37), False),
+                                    ((2048, 96), True))]
+    cases += [("float32", shape, False) for shape in (
+        (5, 512), (1000, 512), (1003, 64), (1003, 96), (1030, 192),
+        (1030, 516), (1030, 1772), (777, 4000), (1027, sf.MAX_COLUMNS),
+        (515, sf.MAX_COLUMNS + 4))]
+    for dtype, (n, h), integer in cases:
+        x, xt, _ = _codes(rng, n, h, dtype, integer=integer)
+        w, base, r = (_vec(rng, s, integer) for s in (h, n, n))
+        X = xt.cuda()
+        wt, bt, rt = (torch.from_numpy(a).cuda() for a in (w, base, r))
+        routes = [X]
+        if dtype == "float32" and h % 4 == 0 and h <= sf.MAX_COLUMNS:
+            assert sf.route(X) == "ring"
+            routes.append(_misaligned(X))
+            assert sf.route(routes[-1]) == "direct"
+        ring_m = None
+        for X in routes:
             m1, m2 = sf.hot_margins(X, wt, bt), sf.hot_margins(X, wt, bt)
             g1, g2 = sf.hot_rmatvec(X, rt), sf.hot_rmatvec(X, rt)
             torch.cuda.synchronize()
             assert torch.equal(m1, m2) and torch.equal(g1, g2)
+            if ring_m is None:
+                ring_m = m1
+            else:  # the direct route gives the ring's margins bits
+                assert torch.equal(m1, ring_m)
             x64 = x.astype(np.float64)
             m, g = m1.cpu().numpy(), g1.cpu().numpy()
             assert _within_terms(m, x64 @ w + base,
