@@ -9,7 +9,8 @@ code is non-zero:
 1. device  — requires CUDA; the card's name and power limit (nvidia-smi)
              and the torch/CUDA versions.
 2. build   — builds every kernel library from photon_ml_torch/csrc/,
-             all nvcc processes at once.
+             all nvcc processes at once, and beside them csrc/hot_pass.cu
+             with HOT_PASS_TIMING_NO_TRANSPOSE for the hybrid phases.
 3. kernels — holds serving_score against its plain PyTorch version on
              the card, at the shapes the serving path gives it and at
              the kernel-sweep shape, and times both with CUDA events: on
@@ -189,7 +190,12 @@ code is non-zero:
              plain version over 65,536-row blocks, two launches the same
              bits), timed against the two- and three-kernel routes, the
              library route (torch.mm with a float32 output) and the
-             plain version, beside its bound.
+             plain version, beside its bound; both passes also at ring
+             shapes 8x2, 8x4 and 4x4 and without their transposed
+             product. Then a 5-iteration TRON solve on the staged block
+             (sparse_problem.run_hybrid; no second staging): its seconds,
+             hot_hessian_vector launches = H·v products, and its
+             objective beside the L-BFGS fit's.
    stream_bf16_train — stream_train in bfloat16 chunks (X_hot and
              cold_vals) over the first 2,359,296 training rows (9 chunks;
              cut, for time): GB/s and bytes a pass, launches = chunks ×
@@ -263,7 +269,8 @@ its kernels, sparse_down_sampled, stream_train, its kernels,
 stream_resume, hybrid_train, cold_grad's kernels, hybrid_bf16_train,
 stream_bf16_train, then the sparse, stream, hybrid, hybrid_bf16 and
 down-sampling parities and the GLM phases. Each line carries the seconds since the
-start ("at_seconds").
+start ("at_seconds"); a "script" line after the last phase gives the
+total and each line's seconds since the one before it.
 
 Then it prints the kernel table ({"kernels": [...]}; the hybrid block's
 fused pass as hot_value_and_gradient and hot_hessian_vector, its
@@ -276,8 +283,10 @@ beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import json
 import logging
+import math
 import os
 import statistics
 import subprocess
@@ -385,6 +394,8 @@ HYBRID_ROWS = 4_750_000
 HYBRID_ROWS_CUT = 2_000_000
 # hybrid_parity's TRON run on the card.
 TRON_PARITY_ITERATIONS = 5
+# hybrid_bf16_train's TRON solve on the staged 9.5M-row bfloat16 block.
+TRON_BF16_ITERATIONS = 5
 # The int8 stream_train streams the first STREAM_ROWS training rows (10
 # chunks, the last one padded); stream_bf16_train the first
 # STREAM_BF16_ROWS (9 whole chunks). Both are cut for the script's time.
@@ -442,10 +453,15 @@ STREAM_KILL_AFTER = 10
 _T0 = time.perf_counter()
 
 
+_LINES: list = []  # (phase, at_seconds) of every line printed
+
+
 def emit(phase: str, **fields) -> None:
     """One phase's JSON line, with the seconds since the script started."""
-    print(json.dumps({"phase": phase, **fields,
-                      "at_seconds": time.perf_counter() - _T0}), flush=True)
+    at = time.perf_counter() - _T0
+    _LINES.append((phase, at))
+    print(json.dumps({"phase": phase, **fields, "at_seconds": at}),
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -2752,8 +2768,16 @@ def phase_hybrid_bf16_train(np, torch, card: str, train, val,
     fused = check_hot_pass(torch, hs, hp, coord.loss, hb, w_perm, v_perm)
     eval_ms = call_ms(torch, lambda: hs.value_and_gradient(
         coord.loss, w_perm, hb), reps=5, inner=3)
-    hot = fused_pass_times(torch, hs, sf, hp, coord.loss, hb,
-                           hot_pass_inputs(hs, hb, w_perm, v_perm))
+    a = hot_pass_inputs(hs, hb, w_perm, v_perm)
+    hot = fused_pass_times(torch, hs, sf, hp, coord.loss, hb, a)
+    # What holds the pass back, in both modes: ring shapes and the pass
+    # without its transposed product.
+    for name, times in hot_pass_attribution(
+            torch, hp, coord.loss, a, ((8, 2), (8, 4), (4, 4)),
+            (False, True)).items():
+        hot[name].update(times)
+    del a
+    tron = hybrid_bf16_tron(torch, coord, hb, w_perm, counters)
     emit("hybrid_bf16_train", card=card, rows=rows, val_rows=val.num_rows,
          dim=hb.num_features, slots=SPARSE_NNZ, feature_dtype="bfloat16",
          num_hot=hb.num_hot, hot_block_columns=int(hb.X_hot.shape[1]),
@@ -2769,13 +2793,61 @@ def phase_hybrid_bf16_train(np, torch, card: str, train, val,
          ms_per_evaluation={"hybrid_bf16": eval_ms, "ell": ell["eval_ms"]},
          auc={"hybrid_bf16": fit["auc"], "ell": ell["auc"]},
          auc_diff=abs(fit["auc"] - ell["auc"]), ell=ell,
-         hot_pass_checks=fused, hot_block=hot)
+         hot_pass_checks=fused, hot_block=hot, tron=tron)
     if not same_bits:
         raise AssertionError("hybrid_bf16_train: two value-and-gradient "
                              "passes at the same iterate differ")
     del coord, hb, est, result
     return {"launches": launches, "rows": rows, "hot": hot,
-            "hot_pass_checks": fused, "eval_ms": eval_ms}
+            "hot_pass_checks": fused, "eval_ms": eval_ms, "tron": tron}
+
+
+def hybrid_bf16_tron(torch, coord, hb, w_lbfgs, counters: dict) -> dict:
+    """TRON_BF16_ITERATIONS TRON iterations on the staged bfloat16 block
+    (sparse_problem.run_hybrid over coord.staged, from zero: a second
+    9.5M-row block would not fit the card), with the launches read around
+    the solve; its objective beside the L-BFGS fit's at that fit's final
+    iterate ``w_lbfgs`` (permuted space)."""
+    import dataclasses
+
+    from photon_ml_torch.optim import sparse_problem, with_l2
+    from photon_ml_torch.optim.problem import VarianceComputationType
+    from photon_ml_torch.optim.regularization import intercept_mask
+
+    cfg = dataclasses.replace(
+        sparse_estimator(hb.device.type, "TRON", TRON_BF16_ITERATIONS)
+        .coordinate_configs["ctr"].optimization,
+        variance_computation=VarianceComputationType.NONE)
+    stats = sparse_problem.SolveStats()
+    torch.cuda.synchronize()
+    for fn in counters.values():  # the TRON solve starts
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, res = sparse_problem.run_hybrid(
+        coord.loss, hb, cfg, intercept_index_permuted=coord._ii_perm,
+        stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}  # ... ends
+    evals, products = stats.gradient_evaluations, \
+        stats.hessian_vector_products
+    want = {"hot_value_and_gradient": evals, "hot_hessian_vector": products,
+            "cold_grad": evals + products, "hot_rmatvec": 0}
+    got = {k: launches[k] for k in want}
+    mask = torch.as_tensor(intercept_mask(hb.num_features, coord._ii_perm),
+                           device=hb.device)
+    vg = with_l2(sparse_problem.make_value_and_gradient(coord.loss, hb),
+                 cfg.regularization.l2_weight(), mask)
+    lbfgs_value = float(vg(w_lbfgs[None])[0][0])
+    out = {"iterations": int(res.iterations[0]),
+           "gradient_evaluations": evals,
+           "hessian_vector_products": products, "solve_seconds": seconds,
+           "launches": launches, "objective": float(res.value[0]),
+           "lbfgs_objective": lbfgs_value}
+    if got != want or products == 0 or not math.isfinite(out["objective"]):
+        raise AssertionError(f"hybrid_bf16_train TRON: launches {launches}, "
+                             f"expected {want} ({out})")
+    return out
 
 
 def hot_pass_inputs(hs, hb, w_perm, v_perm) -> dict:
@@ -2919,45 +2991,112 @@ def check_hot_pass(torch, hs, hp, loss, hb, w_perm, v_perm) -> dict:
     return out
 
 
-def hot_pass_variant(torch, hp, define: str):
-    """csrc/hot_pass.cu built with ``define`` into the package's build
-    directory, its C entry typed as the package's."""
-    import ctypes
+# csrc/hot_pass.cu's timing builds, by define: the nvcc process started
+# beside the package's build, then the loaded library.
+_variants: dict = {}
+TIMING_DEFINE = "HOT_PASS_TIMING_NO_TRANSPOSE"
 
+
+def start_hot_pass_variant(define: str) -> None:
+    """Start nvcc on csrc/hot_pass.cu with -D``define`` into the package's
+    build directory, so it compiles while the package's kernels do."""
     from photon_ml_torch.ops.kernels import _build
 
-    hp.load()
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
     lib = os.path.join(_build.BUILD_DIR, f"libhot_pass-{define}.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-o",
-                    lib, os.path.join(_build.SRC_DIR, "hot_pass.cu")],
-                   check=True, capture_output=True, text=True, timeout=300)
-    fn = ctypes.CDLL(lib).hot_pass_f32
-    entry = hp._launchers[torch.float32]
+    _variants[define] = (lib, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-o", lib,
+         os.path.join(_build.SRC_DIR, "hot_pass.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+
+def stop_hot_pass_variants() -> None:
+    """Ends any timing build still running (the script failed first)."""
+    for entry in _variants.values():
+        if isinstance(entry, tuple) and entry[1].poll() is None:
+            entry[1].kill()
+            entry[1].wait()
+
+
+def hot_pass_variant(torch, hp, define: str, dtype):
+    """The timing build of csrc/hot_pass.cu with ``define`` (started by
+    start_hot_pass_variant), its C entry for ``dtype`` blocks typed as the
+    package's."""
+    import ctypes
+
+    if isinstance(_variants[define], tuple):
+        lib, proc = _variants[define]
+        _, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -D{define} csrc/hot_pass.cu failed "
+                               f"(exit {proc.returncode}):\n{err}")
+        _variants[define] = ctypes.CDLL(lib)
+    hp.load()
+    fn = getattr(_variants[define], hp.ENTRIES[dtype])
+    entry = hp._launchers[dtype]
     fn.argtypes, fn.restype = entry.argtypes, entry.restype
     return fn
 
 
-def raw_hot_pass(torch, hp, fn, a, loss, rows: int, stages: int):
-    """One value-and-gradient launch through the C entry ``fn`` with the
-    ring geometry given (the package picks it with ring_shape)."""
+def raw_hot_pass(torch, hp, fn, a, loss, rows: int, stages: int,
+                 hessian: bool = False):
+    """One value-and-gradient (or, ``hessian``, H·v) launch through the C
+    entry ``fn`` with the ring geometry given (the package picks it with
+    ring_shape)."""
     X = a["X"]
     n, h = (int(x) for x in X.shape)
     z = torch.empty(n, dtype=torch.float32, device=X.device)
+    xv = torch.empty(n, dtype=torch.float32, device=X.device) \
+        if hessian else None
     groups = -(-n // hp.ROW_GROUP)
     partial = torch.empty((groups, h), dtype=torch.float32, device=X.device)
     g = torch.empty(h, dtype=torch.float32, device=X.device)
-    cold = a["cold_z"]
-    err = fn(X.data_ptr(), a["w_hot"].data_ptr(), None,
-             a["offsets"].data_ptr(), None if cold is None else
-             cold.data_ptr(), None, a["labels"].data_ptr(),
-             a["weights"].data_ptr(), z.data_ptr(), None,
-             partial.data_ptr(), g.data_ptr(), n, h, rows, stages,
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = fn(X.data_ptr(), a["w_hot"].data_ptr(),
+             ptr(a["v_hot"]) if hessian else None, a["offsets"].data_ptr(),
+             ptr(a["cold_z"]), ptr(a["cold_zv"]) if hessian else None,
+             a["labels"].data_ptr(), a["weights"].data_ptr(), z.data_ptr(),
+             ptr(xv), partial.data_ptr(), g.data_ptr(), n, h, rows, stages,
              groups, hp.LOSSES.index(loss.name),
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"hot_pass ({rows} rows, {stages} stages): CUDA "
                            f"error {err}")
     return z, g
+
+
+def hot_pass_attribution(torch, hp, loss, a: dict, shapes, modes) -> dict:
+    """What holds the fused pass back at this block: each pass of
+    ``modes`` (False: value and gradient, True: H·v) at each ring shape
+    (rows, tiles) of ``shapes`` that fits a block, and at the package's
+    shape without its transposed product (HOT_PASS_TIMING_NO_TRANSPOSE,
+    a build of its own)."""
+    X = a["X"]
+    h = int(X.shape[1])
+    itemsize = X.element_size()
+    entry = hp._launchers[X.dtype]
+    no_transpose = hot_pass_variant(torch, hp, TIMING_DEFINE, X.dtype)
+    out = {}
+    for hessian in modes:
+        ring = {}
+        for rows, stages in shapes:
+            if hp.shared_bytes(h, rows, stages, hessian,
+                               itemsize) <= hp.MAX_SHARED:
+                ring[f"{rows}x{stages}"] = device_ms(
+                    torch, lambda: raw_hot_pass(
+                        torch, hp, entry, a, loss, rows, stages, hessian),
+                    reps=5, inner=3)
+        shape = hp.ring_shape(h, hessian, itemsize)
+        out["hot_hessian_vector" if hessian else "hot_value_and_gradient"] = {
+            "ring_ms": ring,
+            "no_transpose_ms": device_ms(
+                torch, lambda: raw_hot_pass(torch, hp, no_transpose, a, loss,
+                                            *shape, hessian),
+                reps=5, inner=3)}
+    return out
 
 
 def fused_pass_times(torch, hs, sf, hp, loss, hb, a: dict) -> dict:
@@ -3110,22 +3249,10 @@ def hot_block_times(torch, hs, sf, hp, loss, hb, w_perm, v_perm) -> dict:
 
     # What holds the pass back: the ring's depth, and the pass without
     # its transposed product (phase (c)), at this shape.
-    hp.load()
-    ring = {}
-    for rows, stages in ((8, 2), (8, 3), (4, 2), (4, 4), (4, 6), (2, 8)):
-        if hp.shared_bytes(h, rows, stages, False) <= hp.MAX_SHARED:
-            ring[f"{rows}x{stages}"] = device_ms(
-                torch, lambda: raw_hot_pass(
-                    torch, hp, hp._launchers[torch.float32], a, loss, rows,
-                    stages), reps=5, inner=3)
-    no_transpose = hot_pass_variant(torch, hp,
-                                    "HOT_PASS_TIMING_NO_TRANSPOSE")
-    rows, stages = hp.ring_shape(h, False)
-    out["hot_value_and_gradient"].update({
-        "ring_ms": ring,
-        "no_transpose_ms": device_ms(
-            torch, lambda: raw_hot_pass(torch, hp, no_transpose, a, loss,
-                                        rows, stages), reps=5, inner=3)})
+    times = hot_pass_attribution(
+        torch, hp, loss, a, ((8, 2), (8, 3), (4, 2), (4, 4), (4, 6), (2, 8)),
+        (False,))
+    out["hot_value_and_gradient"].update(times["hot_value_and_gradient"])
     return out
 
 
@@ -4351,6 +4478,8 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
+    atexit.register(stop_hot_pass_variants)
+    start_hot_pass_variant(TIMING_DEFINE)
     built = _build.build()
     emit("build", seconds=time.perf_counter() - t0, built=built,
          sources=_build.sources())
@@ -4583,15 +4712,17 @@ def main() -> int:
                if k in t},
             "shape": (f"n={t['n']} H={t['H']} float32 (hybrid_train's hot "
                       f"block, {hybrid_rows} rows)")})
-    # The bfloat16 entry of the same pass: checked and timed at
-    # hybrid_bf16_train's 9.5M-row block; the H·v pass launches on
-    # hybrid_bf16_parity's TRON fit.
+    # The bfloat16 entry of the same pass: checked, timed and launched at
+    # hybrid_bf16_train's 9.5M-row block (the L-BFGS fit, then the TRON
+    # solve on the same block); the launches on hybrid_bf16_parity's
+    # 285,000-row TRON fit ride beside them.
     bf16_checks = hybrid_bf16["hot_pass_checks"]
     for name, launches_on, label in (
             ("hot_value_and_gradient", hybrid_bf16["launches"],
              "hybrid_bf16_train's L-BFGS fit"),
-            ("hot_hessian_vector", tron_hybrid_bf16_launches,
-             "hybrid_bf16_parity's TRON fit")):
+            ("hot_hessian_vector", hybrid_bf16["tron"]["launches"],
+             f"hybrid_bf16_train's {TRON_BF16_ITERATIONS}-iteration TRON "
+             f"solve")):
         t = hybrid_bf16["hot"][name]
         table.append({
             "name": f"{name}_bf16", "route": "cuda",
@@ -4599,6 +4730,8 @@ def main() -> int:
             "replaces": "photon_ml_tpu/ops/kernels/stream_fused.py:61",
             "also_replaces": "photon_ml_tpu/ops/kernels/stream_fused.py:112",
             "launches": launches_on[name], "launches_on": label,
+            "tron_launches": hybrid_bf16["tron"]["launches"][name],
+            "parity_tron_launches": tron_hybrid_bf16_launches[name],
             "max_abs_err": bf16_checks[name]["max_abs_err"],
             "parity_rel": bf16_checks[name]["parity_rel"],
             "column_ratio": bf16_checks[name]["column_ratio"],
@@ -4607,7 +4740,7 @@ def main() -> int:
                 "ms", "ms_runs", "call_ms", "plain_ms", "plain_timing",
                 "bound_ms", "bound_by", "bound_share", "library_ms",
                 "library_call", "old_route_ms", "old_route_runs",
-                "old_route", "ring")},
+                "old_route", "ring", "ring_ms", "no_transpose_ms")},
             "shape": (f"n={t['n']} H={t['H']} bfloat16 (hybrid_bf16_train's "
                       f"hot block, {hybrid_bf16['rows']} rows)")})
     main_cold = cold_checks[0]
@@ -4636,6 +4769,10 @@ def main() -> int:
                   f"{main_cold['slots']} slots"),
         "per_class": main_cold["per_class"],
         "checks": len(cold_checks)})
+    # The script's seconds, and each line's since the one before it.
+    emit("script", seconds=time.perf_counter() - _T0, line_seconds=[
+        [p, round(at - before, 3)]
+        for (p, at), (_, before) in zip(_LINES, [("", 0.0)] + _LINES)])
     # Every TPU kernel of the repo has its port (ROADMAP.md §B).
     to_port = []
     print(json.dumps({"kernels": table, "to_port": to_port}), flush=True)

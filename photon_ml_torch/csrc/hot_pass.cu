@@ -32,49 +32,88 @@
 // labels and weights read and z written add 95 MB: 10.08 ms. Its 4 n H
 // flops take 0.50 ms at the 67 TFLOP/s float32 rate outside the tensor
 // cores. A bfloat16 block moves half the bytes a column for the same
-// flops (plus one conversion an element), so bytes still bound it: at
-// config 5's 9.5M rows (threshold n/4096, about 3,000 columns) about
-// 57 GB, 17 ms.
+// flops, so bytes still bound it: at config 5's 9.5M rows (threshold
+// n/4096: H = 3,016) X is 57.30 GB, 17.16 ms (17.19 for H.v); its 4 n H
+// (6 n H) flops take 1.7 (2.6) ms.
 //
-// Design.
+// Both entries.
 // - A persistent grid (at most the blocks the card holds at once) walks
 //   fixed groups of kGroup = 512 rows: block b takes groups b, b + P, ...
 //   Each group gives one partial row of g, written to partial[group, :];
 //   a second launch adds the partials in group order. No atomics: every
 //   sum's order is fixed by n and H alone, not by the grid or by
 //   scheduling, so two launches give the same bits.
-// - A ring of S tiles of R rows in dynamic shared memory (the wrapper picks
-//   R <= 8 and S >= 2 with S * R * H * sizeof(element) bytes plus float32 w
-//   (and v) under the 227 KB a block may hold: R = 8, S = 3 at H = 1,772
-//   float32). Thread 0 fills a tile with one bulk copy a row
-//   (cp.async.bulk; rows are a multiple of 16 bytes: H a multiple of 4
-//   float32 or 8 bfloat16 columns) completing on the slot's mbarrier, and
-//   refills a slot as soon as the block has consumed it, so S - 1 tiles
-//   are in flight while one is used. A block's ring runs on from one group
-//   to the next. At H = 2,984 bfloat16 (config 5's 9.5M rows): R = 8,
-//   S = 4.
-// - (a) Margins: warp q takes row q of the tile, out of shared memory, in
-//   exactly hot_margins_kernel's order (csrc/stream_fused.cu): lane l
-//   owns the 16-byte vectors l, l + 32, ... of the row (4 float32 or 8
-//   bfloat16 elements each, a bfloat16 widened to float32 in registers)
-//   and adds their products with fmaf in element order, the xor butterfly
-//   16 .. 1 adds the lane sums, then + offsets[i], then + cold_z[i]. So z
-//   equals the two-kernel route's hot_margins + scatter bit for bit, for
-//   either element type. Each row's offsets, labels, weights and cold
-//   terms are loaded before the wait on the tile, so their latency hides
-//   behind it.
+// - A ring of S tiles of R rows in dynamic shared memory: the wrapper
+//   picks the most rows up to R = 8, then the most tiles S >= 2, that fit
+//   the 227 KB a block may hold (shared_bytes). Rows are a multiple of 16
+//   bytes (H a multiple of 4 float32 or 8 bfloat16 columns) and are
+//   filled by bulk copies (cp.async.bulk) completing on the slot's
+//   mbarrier. A block's ring runs on from one group to the next.
+// - (a) Margins, in exactly hot_margins_kernel's order
+//   (csrc/stream_fused.cu): lane l of the warp that takes a row owns its
+//   16-byte vectors l, l + 32, ... (4 float32 or 8 bfloat16 elements
+//   each, a bfloat16 widened to float32 in registers) and adds their
+//   products with fmaf in element order, the xor butterfly 16 .. 1 adds
+//   the lane sums, then + offsets[i], then + cold_z[i]. So z equals the
+//   two-kernel route's hot_margins + scatter bit for bit, for either
+//   element type, and so does x.v.
 // - (b) The residual, from the loss's device policy: the formulas of
 //   photon_ml_torch/ops/losses.py, with each product that feeds an add
 //   rounded on its own (__fmul_rn), so no contraction changes the bits.
 //   Over a bfloat16 block it is then rounded to bfloat16 (rho).
-// - (c) The transposed product: thread t owns the 16-byte column vectors
-//   t, t + 256, ... (at most 8 of 4 float32 columns or 4 of 8 bfloat16
-//   ones, H <= 8,192) as float32 sums in registers and adds x * rho(r[i])
-//   with fmaf, tile row after tile row.
+// - (c) The transposed product: a thread owns fixed 16-byte column
+//   vectors as float32 sums in registers and adds x * rho(r[i]) with
+//   fmaf, tile row after tile row.
 //
-// HOT_PASS_TIMING_NO_TRANSPOSE, defined only by chip_smoke.py's timing
-// harness in its own build, leaves phase (c) out, to show what the
-// transposed product costs inside the pass. The package never defines it.
+// The float32 entry (hot_pass_kernel; R = 8, S = 3 at H = 1,772): one
+// block of 8 warps an SM; thread 0 fills a tile with one bulk copy a row
+// and refills a slot once the block has used it. Warp q takes tile row q
+// in (a) and (b), then, after a __syncthreads, thread t owns the column
+// vectors t, t + 256, ... in (c), and a second __syncthreads frees the
+// slot. Each row's terms are loaded before the wait on its tile. It runs
+// at 91% of its bound (PERF.md).
+//
+// The bfloat16 entry (hot_pass_bf16_kernel; R = 8, S = 4 at H = 3,016).
+// The float32 entry's loop over 16-bit elements ran at 55.6% (value and
+// gradient, 30.84 ms) and 46.3% (H.v, 37.12 ms) of the bound at 9.5M x
+// 3,016. Timed at other ring shapes and without phase (c)
+// (dev-scripts/exp_hot_pass_bf16.py): two blocks an SM, where the ring
+// left room for them, took value and gradient to 20.45 ms, so the two
+// phases, serialised by the block's barriers, cost more than the bytes;
+// H.v's margins alone took 25.7 ms, since every row read float32 w and v
+// from shared memory with two-way bank conflicts (18 bytes of shared
+// traffic an element against the ring's 2); at 4-row tiles one warp a
+// row left half the block idle. So:
+// - Warp roles, no block-wide barrier after set-up. Warp 0's thread 0 is
+//   the producer: one bulk copy a tile (its R rows lie back to back in
+//   X), into a slot that its "empty" mbarrier says is read. Warps 1-4 run
+//   (a) and (b) and hand rho(r) over in the slot's array of R floats,
+//   then arrive on its "ready" mbarrier; warps 5-8 run (c) on the slot,
+//   then arrive on "empty". The margins of the next tiles run while the
+//   transposed product of the current one does, S - 1 tiles ahead at
+//   most.
+// - w and v are kept in shared memory as bfloat16 (exact: the caller
+//   rounded them), half the bytes, read with conflict-free 16-byte loads.
+// - Margin warp q takes tile rows q and q + 4 at once: each vector of w
+//   (and v) is read and widened once for both rows, and each lane runs
+//   two (H.v: four) independent fmaf chains. The next vectors of x, w and
+//   v are loaded before the current products; each row's terms are
+//   loaded a tile ahead.
+// - Phase (c): thread c of the 128 owns the column vectors c, c + 128,
+//   ..., at most kVecs (a template: 4 up to H = 4,096, else 8); a full
+//   tile's 8 rows run in an unrolled loop.
+// - The loss is picked a row at run time (one uniform branch), so the
+//   entry builds four kernels (mode x kVecs), not sixteen.
+// - The ring's depth: ring_shape gives a bfloat16 block the most tiles
+//   that leave room for two blocks an SM (8 x 2 at H = 3,016, 18 warps an
+//   SM), which beat one block with a deeper ring.
+// Per element the pass then reads 2 bytes of x in (a), 2 in (c) and 1 of
+// w (and of v) from shared memory, beside the ring's 2-byte fill.
+//
+// HOT_PASS_TIMING_NO_TRANSPOSE, defined only by the timing harnesses
+// (chip_smoke.py, dev-scripts/exp_hot_pass_bf16.py) in a build of their
+// own, leaves phase (c) out of either entry, to show what the transposed
+// product costs inside the pass. The package never defines it.
 //
 // Offsets are int64. Plain C interface for ctypes: the launcher returns a
 // cudaError_t (cudaErrorInvalidValue for a shape or geometry it refuses).
@@ -151,15 +190,21 @@ struct Args {
   int H;
   int rows;    // R
   int stages;  // S
+  int loss;    // the bfloat16 entry's loss id (LOSSES order)
 };
 
-// The ring's rows hold ``itemsize``-byte elements (4: float32, 2:
-// bfloat16); w and v are float32 either way.
+// The ring's rows hold ``itemsize``-byte elements. Float32 (4): the ring,
+// float32 w (and v), the tile's residuals and one mbarrier a slot.
+// Bfloat16 (2): the ring, bfloat16 w (and v), each slot's residuals and
+// three mbarriers a slot (full, ready, empty).
 __host__ __device__ constexpr size_t shared_bytes(int H, int R, int S,
                                                   bool hessian,
                                                   int itemsize = 4) {
-  return static_cast<size_t>(S) * R * H * itemsize +
-         (hessian ? 2 : 1) * H * 4 + kMaxRows * 4 + S * 8;
+  return itemsize == 2
+             ? static_cast<size_t>(S) * R * H * 2 + (hessian ? 2 : 1) * H * 2 +
+                   S * kMaxRows * 4 + 3 * S * 8
+             : static_cast<size_t>(S) * R * H * 4 + (hessian ? 2 : 1) * H * 4 +
+                   kMaxRows * 4 + S * 8;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -366,70 +411,210 @@ __global__ void __launch_bounds__(kThreads, 1) hot_pass_kernel(const Args a) {
   }
 }
 
-// The bfloat16 entry. A bfloat16 is the top half of the float32 with the
-// same value; a 16-byte vector holds kN = 8 of them, and a thread owns at
-// most kBf16Vecs = 4 column vectors in phase (c) (8,192 columns). rho
-// rounds the residual to bfloat16, to nearest even.
-struct Bf16Vec {
-  static constexpr int kN = 8;
-  union {
-    int4 raw;
-    uint16_t e[kN];
-  };
-};
-constexpr int kBf16Vecs = kMaxColumns / (Bf16Vec::kN * kThreads);
+// The bfloat16 entry (the design note at the top). A bfloat16 is the
+// top half of the float32 with the same value, so a 32-bit word of two
+// bfloat16s widens to two floats with one shift or one mask: element 2k
+// is the low half of word k. A 16-byte vector holds 8 of them.
+constexpr int kBf16N = 8;
+constexpr int kMarginWarps = 4;    // phases (a) and (b)
+constexpr int kTransposeWarps = 4;  // phase (c)
+constexpr int kBf16Threads = 32 * (1 + kMarginWarps + kTransposeWarps);
+constexpr int kTransposeThreads = 32 * kTransposeWarps;
+// A margin warp takes tile rows q and q + kMarginWarps at once.
+static_assert(kMaxRows == 2 * kMarginWarps, "two rows a margin warp");
+// Column vectors a phase (c) thread owns, at most (8,192 columns).
+constexpr int kBf16MaxVecs = kMaxColumns / (kBf16N * kTransposeThreads);
 
-__device__ __forceinline__ float up_bf16(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+__device__ __forceinline__ float lo_bf16(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+
+__device__ __forceinline__ float hi_bf16(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
 }
 
 __device__ __forceinline__ float round_bf16(float r) {
   return __bfloat162float(__float2bfloat16_rn(r));
 }
 
-// a + x . w over one vector x, in element order; w is its 8 float32
-// weights, two float4s in shared memory.
-__device__ __forceinline__ float dot_bf16(const Bf16Vec& x, const float4* w,
-                                          float a) {
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const float4 wp = w[p];
-    a = fmaf(up_bf16(x.e[4 * p]), wp.x, a);
-    a = fmaf(up_bf16(x.e[4 * p + 1]), wp.y, a);
-    a = fmaf(up_bf16(x.e[4 * p + 2]), wp.z, a);
-    a = fmaf(up_bf16(x.e[4 * p + 3]), wp.w, a);
-  }
-  return a;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+             << 16;
 }
 
-template <class Loss, bool kHessian>
-__global__ void __launch_bounds__(kThreads, 1)
+// The 8 floats of a 16-byte vector of bfloat16s, in element order.
+__device__ __forceinline__ void widen(const uint4 u, float (&f)[kBf16N]) {
+  f[0] = lo_bf16(u.x); f[1] = hi_bf16(u.x);
+  f[2] = lo_bf16(u.y); f[3] = hi_bf16(u.y);
+  f[4] = lo_bf16(u.z); f[5] = hi_bf16(u.z);
+  f[6] = lo_bf16(u.w); f[7] = hi_bf16(u.w);
+}
+
+// a + x . w over one vector x, in element order.
+__device__ __forceinline__ float dot_bf16(const uint4 x,
+                                          const float (&w)[kBf16N],
+                                          float a) {
+  a = fmaf(lo_bf16(x.x), w[0], a);
+  a = fmaf(hi_bf16(x.x), w[1], a);
+  a = fmaf(lo_bf16(x.y), w[2], a);
+  a = fmaf(hi_bf16(x.y), w[3], a);
+  a = fmaf(lo_bf16(x.z), w[4], a);
+  a = fmaf(hi_bf16(x.z), w[5], a);
+  a = fmaf(lo_bf16(x.w), w[6], a);
+  return fmaf(hi_bf16(x.w), w[7], a);
+}
+
+// The bfloat16 entry's loss, picked at run time (one uniform branch a
+// row): one kernel a mode and width keeps the source's build short.
+__device__ __forceinline__ float loss_dl(int loss, float z, float y) {
+  switch (loss) {
+    case 0: return Logistic::dl(z, y);
+    case 1: return Squared::dl(z, y);
+    case 2: return Poisson::dl(z, y);
+    default: return SmoothedHinge::dl(z, y);
+  }
+}
+
+__device__ __forceinline__ float loss_d2(int loss, float z, float y) {
+  switch (loss) {
+    case 0: return Logistic::d2(z, y);
+    case 1: return Squared::d2(z, y);
+    case 2: return Poisson::d2(z, y);
+    default: return SmoothedHinge::d2(z, y);
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Phase (a) for one margin warp: the lane sums of rows x0 (and, kTwo, x1)
+// against w (and, kHessian, v), lane l over the vectors l, l + 32, ...
+// The next vectors are loaded before the current ones are used.
+template <bool kHessian, bool kTwo>
+__device__ __forceinline__ void lane_dots(const uint4* x0, const uint4* x1,
+                                          const uint4* w_s, const uint4* v_s,
+                                          int nvec, int lane, float (&s)[2],
+                                          float (&sv)[2]) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 xa = zero, xb = zero, wq = zero, vq = zero;
+  int j = lane;
+  if (j < nvec) {
+    xa = x0[j];
+    if (kTwo) xb = x1[j];
+    wq = w_s[j];
+    if (kHessian) vq = v_s[j];
+  }
+  for (; j < nvec; j += 32) {
+    const int jn = j + 32;
+    uint4 xa_n = zero, xb_n = zero, wq_n = zero, vq_n = zero;
+    if (jn < nvec) {
+      xa_n = x0[jn];
+      if (kTwo) xb_n = x1[jn];
+      wq_n = w_s[jn];
+      if (kHessian) vq_n = v_s[jn];
+    }
+    float wf[kBf16N];
+    widen(wq, wf);
+    s[0] = dot_bf16(xa, wf, s[0]);
+    if (kTwo) s[1] = dot_bf16(xb, wf, s[1]);
+    if (kHessian) {
+      float vf[kBf16N];
+      widen(vq, vf);
+      sv[0] = dot_bf16(xa, vf, sv[0]);
+      if (kTwo) sv[1] = dot_bf16(xb, vf, sv[1]);
+    }
+    xa = xa_n;
+    xb = xb_n;
+    wq = wq_n;
+    vq = vq_n;
+  }
+}
+
+// One row's terms, fetched a tile ahead of its use.
+struct RowTerms {
+  float off, cz, czv, y, wt;
+};
+
+__device__ __forceinline__ RowTerms row_terms(const Args& a, int64_t i,
+                                              bool hessian) {
+  RowTerms t;
+  t.off = a.offsets[i];
+  t.y = a.labels[i];
+  t.wt = a.weights[i];
+  t.cz = a.cold_z ? a.cold_z[i] : 0.f;
+  t.czv = hessian && a.cold_zv ? a.cold_zv[i] : 0.f;
+  return t;
+}
+
+// Phase (c) for one tile row: acc[m] += x[c + m * 128] * rq.
+template <int kVecs>
+__device__ __forceinline__ void add_row(const uint4* x, float rq, int c,
+                                        int nvec,
+                                        float (&acc)[kVecs][kBf16N]) {
+#pragma unroll
+  for (int m = 0; m < kVecs; ++m) {
+    const int j = c + m * kTransposeThreads;
+    if (j < nvec) {
+      const uint4 u = x[j];
+      acc[m][0] = fmaf(lo_bf16(u.x), rq, acc[m][0]);
+      acc[m][1] = fmaf(hi_bf16(u.x), rq, acc[m][1]);
+      acc[m][2] = fmaf(lo_bf16(u.y), rq, acc[m][2]);
+      acc[m][3] = fmaf(hi_bf16(u.y), rq, acc[m][3]);
+      acc[m][4] = fmaf(lo_bf16(u.z), rq, acc[m][4]);
+      acc[m][5] = fmaf(hi_bf16(u.z), rq, acc[m][5]);
+      acc[m][6] = fmaf(lo_bf16(u.w), rq, acc[m][6]);
+      acc[m][7] = fmaf(hi_bf16(u.w), rq, acc[m][7]);
+    }
+  }
+}
+
+template <bool kHessian, int kVecs>
+__global__ void __launch_bounds__(kBf16Threads, 1)
     hot_pass_bf16_kernel(const Args a) {
-  constexpr int kN = Bf16Vec::kN;
-  constexpr int kVecs = kBf16Vecs;
-  using V = Bf16Vec;
   extern __shared__ __align__(128) unsigned char smem[];
   const int H = a.H, R = a.rows, S = a.stages;
-  const int nvec = H / kN;  // 16-byte vectors a row
-  V* tiles = reinterpret_cast<V*>(smem);
-  float4* w_s = reinterpret_cast<float4*>(tiles + static_cast<size_t>(S) *
-                                                      R * nvec);
-  float4* v_s = w_s + H / 4;
-  float* r_s = reinterpret_cast<float*>(w_s + (kHessian ? 2 : 1) * (H / 4));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(r_s + kMaxRows);
+  const int nvec = H / kBf16N;  // 16-byte vectors a row
+  uint4* tiles = reinterpret_cast<uint4*>(smem);
+  uint4* w_s = tiles + static_cast<size_t>(S) * R * nvec;
+  uint4* v_s = w_s + nvec;
+  float* r_s = reinterpret_cast<float*>(w_s + (kHessian ? 2 : 1) * nvec);
+  uint64_t* full = reinterpret_cast<uint64_t*>(r_s + S * kMaxRows);
+  uint64_t* ready = full + S;  // the slot's rho(r) is written
+  uint64_t* empty = ready + S;  // the slot is read
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int64_t b = blockIdx.x;
   const int64_t P = gridDim.x;
-  const uint16_t* X = reinterpret_cast<const uint16_t*>(a.X);
 
+  // w and v as bfloat16 (exact: the caller rounded them).
   const float4* w4 = reinterpret_cast<const float4*>(a.w);
   const float4* v4 = reinterpret_cast<const float4*>(a.v);
-  for (int j = tid; j < H / 4; j += kThreads) {
-    w_s[j] = w4[j];
-    if (kHessian) v_s[j] = v4[j];
+  for (int j = tid; j < nvec; j += kBf16Threads) {
+    float4 p = w4[2 * j], q = w4[2 * j + 1];
+    w_s[j] = make_uint4(pack_bf16(p.x, p.y), pack_bf16(p.z, p.w),
+                        pack_bf16(q.x, q.y), pack_bf16(q.z, q.w));
+    if (kHessian) {
+      p = v4[2 * j];
+      q = v4[2 * j + 1];
+      v_s[j] = make_uint4(pack_bf16(p.x, p.y), pack_bf16(p.z, p.w),
+                          pack_bf16(q.x, q.y), pack_bf16(q.z, q.w));
+    }
   }
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kMarginWarps);
+      mbar_init(&empty[s], kTransposeWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();  // the last block-wide barrier: the roles part here
+
   // This block's tiles: groups b, b + P, ..., kGroup / R tiles each; only
   // the last group of all may be short.
   const int per_group = kGroup / R;
@@ -437,7 +622,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int64_t last_row0 = (b + (my_groups - 1) * P) * kGroup;
   const int64_t last_rows =
       a.n - last_row0 < kGroup ? a.n - last_row0 : kGroup;
-  const int64_t my_tiles = (my_groups - 1) * per_group + (last_rows + R - 1) / R;
+  const int64_t my_tiles =
+      (my_groups - 1) * per_group + (last_rows + R - 1) / R;
   auto tile_row0 = [&](int64_t t) {
     const int64_t k = t / per_group;
     return (b + k * P) * kGroup + (t - k * per_group) * R;
@@ -445,121 +631,142 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto tile_rows = [&](int64_t row0) {
     return static_cast<int>(a.n - row0 < R ? a.n - row0 : R);
   };
-  const uint32_t row_bytes = static_cast<uint32_t>(H) * 2;
-  auto issue = [&](int64_t t) {
-    const int slot = static_cast<int>(t % S);
-    const int64_t row0 = tile_row0(t);
-    const int rows = tile_rows(row0);
-    mbar_expect_tx(&bars[slot], rows * row_bytes);
-    for (int q = 0; q < rows; ++q) {
-      bulk_load(tiles + (static_cast<size_t>(slot) * R + q) * nvec,
-                X + (row0 + q) * static_cast<int64_t>(H), row_bytes,
-                &bars[slot]);
-    }
-  };
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) mbar_init(&bars[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int64_t t = 0; t < S && t < my_tiles; ++t) issue(t);
-  }
 
-  float acc[kVecs][kN];
+  if (warp == 0) {
+    // The producer: one bulk copy a tile (its rows lie back to back in
+    // X), into a slot the block has finished reading.
+    if (lane == 0) {
+      const uint16_t* X = reinterpret_cast<const uint16_t*>(a.X);
+      const uint32_t row_bytes = static_cast<uint32_t>(H) * 2;
+      for (int64_t t = 0; t < my_tiles; ++t) {
+        const int slot = static_cast<int>(t % S);
+        const int64_t k = t / S;
+        if (k > 0) {
+          mbar_wait(&empty[slot], static_cast<uint32_t>((k - 1) & 1));
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        }
+        const int64_t row0 = tile_row0(t);
+        const uint32_t bytes = tile_rows(row0) * row_bytes;
+        mbar_expect_tx(&full[slot], bytes);
+        bulk_load(tiles + static_cast<size_t>(slot) * R * nvec,
+                  X + row0 * static_cast<int64_t>(H), bytes, &full[slot]);
+      }
+    }
+  } else if (warp <= kMarginWarps) {
+    // (a) margins and (b) the residual: warp q takes tile rows q and
+    // q + kMarginWarps, each in hot_margins' order.
+    const int q = warp - 1;
+    RowTerms cur[2] = {}, nxt[2] = {};
+    auto fetch = [&](int64_t t, RowTerms (&out)[2]) {
+      const int64_t row0 = tile_row0(t);
+      const int rows = tile_rows(row0);
 #pragma unroll
-  for (int m = 0; m < kVecs; ++m) {
+      for (int p = 0; p < 2; ++p) {
+        const int row = q + p * kMarginWarps;
+        if (row < rows) out[p] = row_terms(a, row0 + row, kHessian);
+      }
+    };
+    fetch(0, cur);
+    for (int64_t t = 0; t < my_tiles; ++t) {
+      const int slot = static_cast<int>(t % S);
+      const int64_t row0 = tile_row0(t);
+      const int rows = tile_rows(row0);
+      if (t + 1 < my_tiles) fetch(t + 1, nxt);
+      mbar_wait(&full[slot], static_cast<uint32_t>((t / S) & 1));
+      if (q < rows) {
+        const uint4* tile = tiles + static_cast<size_t>(slot) * R * nvec;
+        const uint4* x0 = tile + static_cast<size_t>(q) * nvec;
+        const uint4* x1 = x0 + static_cast<size_t>(kMarginWarps) * nvec;
+        const bool two = q + kMarginWarps < rows;
+        float s[2] = {0.f, 0.f}, sv[2] = {0.f, 0.f};
+        if (two) {
+          lane_dots<kHessian, true>(x0, x1, w_s, v_s, nvec, lane, s, sv);
+        } else {
+          lane_dots<kHessian, false>(x0, x1, w_s, v_s, nvec, lane, s, sv);
+        }
 #pragma unroll
-    for (int k = 0; k < kN; ++k) acc[m][k] = 0.f;
-  }
-
-  for (int64_t t = 0; t < my_tiles; ++t) {
-    const int slot = static_cast<int>(t % S);
-    const int64_t row0 = tile_row0(t);
-    const int rows = tile_rows(row0);
-    const int64_t i = row0 + warp;
-    const bool mine = warp < rows;
-    float off = 0.f, cz = 0.f, czv = 0.f, y = 0.f, wt = 0.f;
-    if (mine) {
-      off = a.offsets[i];
-      y = a.labels[i];
-      wt = a.weights[i];
-      if (a.cold_z) cz = a.cold_z[i];
-      if (kHessian && a.cold_zv) czv = a.cold_zv[i];
+        for (int p = 0; p < 2; ++p) {
+          const int row = q + p * kMarginWarps;
+          if (row < rows) {
+            const RowTerms& u = cur[p];
+            const int64_t i = row0 + row;
+            float zi = warp_sum(s[p]) + u.off;
+            if (a.cold_z) zi = zi + u.cz;
+            float ri;
+            if (kHessian) {
+              float xvi = warp_sum(sv[p]) + u.off;
+              if (a.cold_zv) xvi = xvi + u.czv;
+              xvi = xvi - u.off;
+              ri = (u.wt > 0.f ? u.wt * loss_d2(a.loss, zi, u.y) : 0.f) *
+                   xvi;
+              if (lane == 0) a.xv[i] = xvi;
+            } else {
+              ri = u.wt > 0.f ? u.wt * loss_dl(a.loss, zi, u.y) : 0.f;
+            }
+            if (lane == 0) {
+              a.z[i] = zi;
+              r_s[slot * kMaxRows + row] = round_bf16(ri);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&ready[slot]);
+      cur[0] = nxt[0];
+      cur[1] = nxt[1];
     }
-    mbar_wait(&bars[slot], static_cast<uint32_t>((t / S) & 1));
-    const V* tile = tiles + static_cast<size_t>(slot) * R * nvec;
-
-    // (a) margins and (b) the residual: one warp a row.
-    if (mine) {
-      const V* x = tile + static_cast<size_t>(warp) * nvec;
-      float s = 0.f, sv = 0.f;
-      for (int j = lane; j < nvec; j += 32) {
-        const V xj = x[j];
-        s = dot_bf16(xj, w_s + j * (kN / 4), s);
-        if (kHessian) sv = dot_bf16(xj, v_s + j * (kN / 4), sv);
-      }
-      s = warp_sum(s);
-      float zi = s + off;
-      if (a.cold_z) zi = zi + cz;
-      float ri;
-      if (kHessian) {
-        sv = warp_sum(sv);
-        float xvi = sv + off;
-        if (a.cold_zv) xvi = xvi + czv;
-        xvi = xvi - off;
-        ri = (wt > 0.f ? wt * Loss::d2(zi, y) : 0.f) * xvi;
-        if (lane == 0) a.xv[i] = xvi;
-      } else {
-        ri = wt > 0.f ? wt * Loss::dl(zi, y) : 0.f;
-      }
-      if (lane == 0) {
-        a.z[i] = zi;
-        r_s[warp] = round_bf16(ri);
-      }
+  } else {
+    // (c) the transposed product: thread c owns the column vectors c,
+    // c + 128, ... and adds x * rho(r) tile row after tile row.
+    const int c = tid - 32 * (1 + kMarginWarps);
+    float acc[kVecs][kBf16N];
+#pragma unroll
+    for (int m = 0; m < kVecs; ++m) {
+#pragma unroll
+      for (int e = 0; e < kBf16N; ++e) acc[m][e] = 0.f;
     }
-    __syncthreads();
-
+    for (int64_t t = 0; t < my_tiles; ++t) {
+      const int slot = static_cast<int>(t % S);
+      const uint32_t parity = static_cast<uint32_t>((t / S) & 1);
+      const int64_t row0 = tile_row0(t);
+      const int rows = tile_rows(row0);
+      mbar_wait(&full[slot], parity);
+      mbar_wait(&ready[slot], parity);
 #ifndef HOT_PASS_TIMING_NO_TRANSPOSE
-    // (c) this tile's share of X^T rho(r), row after row.
-    for (int q = 0; q < rows; ++q) {
-      const float rq = r_s[q];
-      const V* x = tile + static_cast<size_t>(q) * nvec;
+      const uint4* tile = tiles + static_cast<size_t>(slot) * R * nvec;
+      const float* r = r_s + slot * kMaxRows;
+      if (rows == kMaxRows) {
 #pragma unroll
-      for (int m = 0; m < kVecs; ++m) {
-        const int j = tid + m * kThreads;
-        if (j < nvec) {
-          const V xj = x[j];
-#pragma unroll
-          for (int k = 0; k < kN; ++k) {
-            acc[m][k] = fmaf(up_bf16(xj.e[k]), rq, acc[m][k]);
-          }
+        for (int row = 0; row < kMaxRows; ++row) {
+          add_row<kVecs>(tile + static_cast<size_t>(row) * nvec, r[row], c,
+                         nvec, acc);
+        }
+      } else {
+#pragma unroll 1
+        for (int row = 0; row < rows; ++row) {
+          add_row<kVecs>(tile + static_cast<size_t>(row) * nvec, r[row], c,
+                         nvec, acc);
         }
       }
-    }
 #endif
-    __syncthreads();  // the slot and r_s are free again
-    if (tid == 0 && t + S < my_tiles) {
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      issue(t + S);
-    }
-    const int64_t k = t / per_group;
-    if (t - k * per_group == per_group - 1 || t == my_tiles - 1) {
-      float4* out = reinterpret_cast<float4*>(
-          a.partial + (b + k * P) * static_cast<int64_t>(H));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+      const int64_t k = t / per_group;
+      if (t - k * per_group == per_group - 1 || t == my_tiles - 1) {
+        float4* out = reinterpret_cast<float4*>(
+            a.partial + (b + k * P) * static_cast<int64_t>(H));
 #pragma unroll
-      for (int m = 0; m < kVecs; ++m) {
-        const int j = tid + m * kThreads;
-        if (j < nvec) {
-#pragma unroll
-          for (int p = 0; p < kN / 4; ++p) {
-            out[j * (kN / 4) + p] =
-                make_float4(acc[m][4 * p], acc[m][4 * p + 1],
-                            acc[m][4 * p + 2], acc[m][4 * p + 3]);
+        for (int m = 0; m < kVecs; ++m) {
+          const int j = c + m * kTransposeThreads;
+          if (j < nvec) {
+            out[2 * j] = make_float4(acc[m][0], acc[m][1], acc[m][2],
+                                     acc[m][3]);
+            out[2 * j + 1] = make_float4(acc[m][4], acc[m][5], acc[m][6],
+                                         acc[m][7]);
           }
-        }
 #pragma unroll
-        for (int e = 0; e < kN; ++e) acc[m][e] = 0.f;
+          for (int e = 0; e < kBf16N; ++e) acc[m][e] = 0.f;
+        }
       }
     }
   }
@@ -595,16 +802,13 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <bool kBf16, class Loss, bool kHessian>
-int launch(const Args& a, float* out, cudaStream_t stream) {
-  auto kernel = kBf16 ? hot_pass_bf16_kernel<Loss, kHessian>
-                      : hot_pass_kernel<Loss, kHessian>;
-  // Once a process: allow the kernel the opt-in shared memory.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
+// One pass: ``kernel`` over a persistent grid (at most the blocks the card
+// holds at once, and no more than the groups), then the ordered sum of its
+// partial rows.
+int launch_pass(void (*kernel)(Args), cudaError_t attr, int threads,
+                size_t bytes, const Args& a, float* out,
+                cudaStream_t stream) {
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const size_t bytes =
-      shared_bytes(a.H, a.rows, a.stages, kHessian, kBf16 ? 2 : 4);
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
@@ -613,19 +817,13 @@ int launch(const Args& a, float* out, cudaStream_t stream) {
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, bytes);
+                                                        threads, bytes);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t resident = static_cast<int64_t>(sms) * per_sm;
   const int64_t grid = a.groups < resident ? a.groups : resident;
-  if constexpr (kBf16) {
-    hot_pass_bf16_kernel<Loss, kHessian>
-        <<<static_cast<unsigned>(grid), kThreads, bytes, stream>>>(a);
-  } else {
-    hot_pass_kernel<Loss, kHessian>
-        <<<static_cast<unsigned>(grid), kThreads, bytes, stream>>>(a);
-  }
+  kernel<<<static_cast<unsigned>(grid), threads, bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   hot_pass_sum_kernel<<<(a.H + 31) / 32, kSumWarps * 32, 0, stream>>>(
@@ -633,14 +831,47 @@ int launch(const Args& a, float* out, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Loss, bool kHessian>
+int launch_f32(const Args& a, float* out, cudaStream_t stream) {
+  // Once a process: allow the kernel the opt-in shared memory.
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(hot_pass_kernel<Loss, kHessian>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxShared);
+  return launch_pass(hot_pass_kernel<Loss, kHessian>, attr, kThreads,
+                     shared_bytes(a.H, a.rows, a.stages, kHessian, 4), a,
+                     out, stream);
+}
+
+template <bool kHessian, int kVecs>
+int launch_bf16(const Args& a, float* out, cudaStream_t stream) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(hot_pass_bf16_kernel<kHessian, kVecs>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxShared);
+  return launch_pass(hot_pass_bf16_kernel<kHessian, kVecs>, attr,
+                     kBf16Threads,
+                     shared_bytes(a.H, a.rows, a.stages, kHessian, 2), a,
+                     out, stream);
+}
+
 template <bool kBf16, bool kHessian>
 int dispatch(int loss, const Args& a, float* out, cudaStream_t stream) {
-  switch (loss) {
-    case 0: return launch<kBf16, Logistic, kHessian>(a, out, stream);
-    case 1: return launch<kBf16, Squared, kHessian>(a, out, stream);
-    case 2: return launch<kBf16, Poisson, kHessian>(a, out, stream);
-    case 3: return launch<kBf16, SmoothedHinge, kHessian>(a, out, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kBf16) {
+    // Phase (c) holds 4 column vectors a thread up to 4,096 columns (few
+    // enough registers for two blocks an SM), else 8.
+    if (loss < 0 || loss > 3) return static_cast<int>(cudaErrorInvalidValue);
+    return a.H / kBf16N <= 4 * kTransposeThreads
+               ? launch_bf16<kHessian, 4>(a, out, stream)
+               : launch_bf16<kHessian, kBf16MaxVecs>(a, out, stream);
+  } else {
+    switch (loss) {
+      case 0: return launch_f32<Logistic, kHessian>(a, out, stream);
+      case 1: return launch_f32<Squared, kHessian>(a, out, stream);
+      case 2: return launch_f32<Poisson, kHessian>(a, out, stream);
+      case 3: return launch_f32<SmoothedHinge, kHessian>(a, out, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
@@ -679,6 +910,7 @@ int run(const void* X, const void* w, const void* v, const void* offsets,
   a.H = H;
   a.rows = rows;
   a.stages = stages;
+  a.loss = loss;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   return hessian ? dispatch<kBf16, true>(loss, a, o, s)

@@ -68,6 +68,9 @@ MAX_COLUMNS = 8192
 MAX_ROWS = 8
 MAX_STAGES = 8
 MAX_SHARED = 232_448
+# An SM's shared memory (228 KB) and what the runtime keeps of it a block.
+SM_SHARED = 233_472
+BLOCK_RESERVED = 1_024
 
 
 # The block's element types, by the suffix of their C entry.
@@ -76,25 +79,40 @@ ENTRIES = {torch.float32: "hot_pass_f32", torch.bfloat16: "hot_pass_bf16"}
 
 def shared_bytes(h: int, rows: int, stages: int, hessian: bool,
                  itemsize: int = 4) -> int:
-    """The kernel's dynamic shared memory: the ring (rows of ``itemsize``
-    bytes an element), float32 w (and v), the tile's residuals and one
-    mbarrier a slot."""
-    return (stages * rows * h * itemsize + (2 if hessian else 1) * h * 4
+    """The kernel's dynamic shared memory for rows of ``itemsize``-byte
+    elements. Float32 (4): the ring, float32 w (and v), the tile's
+    residuals and one mbarrier a slot. Bfloat16 (2): the ring, bfloat16 w
+    (and v), each slot's residuals and three mbarriers a slot (tile
+    landed, its residuals written, the slot read)."""
+    vectors = 2 if hessian else 1
+    if itemsize == 2:
+        return (stages * rows * h * 2 + vectors * h * 2
+                + stages * MAX_ROWS * 4 + 3 * stages * 8)
+    return (stages * rows * h * itemsize + vectors * h * 4
             + MAX_ROWS * 4 + stages * 8)
 
 
 def ring_shape(h: int, hessian: bool, itemsize: int = 4) -> tuple[int, int]:
     """(rows a tile, tiles in the ring) for an (n, h) block of
     ``itemsize``-byte elements: the most rows, up to one a warp, that
-    leave room for two tiles, then as many tiles as fit. At h = 1,772
-    float32: 8 rows, 3 tiles."""
+    leave room for two tiles, then as many tiles as fit. A bfloat16 block
+    takes, at that row count, the most tiles that leave room for two
+    blocks an SM where two tiles do: at h = 3,016 on an H100, 8 rows and
+    2 tiles twice an SM beat 8 rows and 4 tiles once (18.50 against
+    18.57 ms a value and gradient, 18.66 against 21.12 an H·v; PERF.md
+    §6, dev-scripts/exp_hot_pass_bf16.py). At h = 1,772 float32: 8 rows,
+    3 tiles."""
     for rows in (8, 4, 2, 1):
-        stages = MAX_STAGES
-        while stages >= 2 and shared_bytes(h, rows, stages, hessian,
-                                           itemsize) > MAX_SHARED:
-            stages -= 1
-        if stages >= 2:
-            return rows, stages
+        fits = [s for s in range(2, MAX_STAGES + 1)
+                if shared_bytes(h, rows, s, hessian, itemsize) <= MAX_SHARED]
+        if not fits:
+            continue
+        if itemsize == 2:
+            twice = [s for s in fits if 2 * (shared_bytes(
+                h, rows, s, hessian, 2) + BLOCK_RESERVED) <= SM_SHARED]
+            if twice:
+                return rows, max(twice)
+        return rows, max(fits)
     raise ValueError(f"hot_pass: rows of {h} columns do not fit two to a "
                      f"block's shared memory")
 

@@ -329,14 +329,23 @@ def test_ring_shape_fits_a_block(h, hessian):
 
 
 @pytest.mark.parametrize("hessian", [False, True])
-@pytest.mark.parametrize("h", [8, 40, 2984, 4096, 8192])
+@pytest.mark.parametrize("h", [8, 40, 2984, 3016, 4096, 8192])
 def test_ring_shape_fits_a_block_bfloat16(h, hessian):
+    """The bfloat16 entry's shared memory: the ring's bfloat16 rows,
+    bfloat16 w (and v), each slot's residuals and three mbarriers a slot
+    (tile landed, residuals written, slot read). At config 5's widths
+    the ring leaves room for two blocks an SM."""
     rows, stages = hp.ring_shape(h, hessian, 2)
     assert 1 <= rows <= hp.MAX_ROWS and hp.ROW_GROUP % rows == 0
     assert 2 <= stages <= hp.MAX_STAGES
-    assert hp.shared_bytes(h, rows, stages, hessian, 2) <= hp.MAX_SHARED
-    if h == 2984:  # the config-5 bfloat16 block at 9.5M rows
-        assert (rows, stages) == (8, 4)
+    vectors = 2 if hessian else 1
+    assert hp.shared_bytes(h, rows, stages, hessian, 2) == (
+        stages * rows * h * 2 + vectors * h * 2
+        + stages * hp.MAX_ROWS * 4 + 3 * stages * 8) <= hp.MAX_SHARED
+    if h in (2984, 3016):  # config 5's bfloat16 block at 9.5M rows
+        assert (rows, stages) == (8, 2)
+        assert 2 * (hp.shared_bytes(h, rows, stages, hessian, 2)
+                    + hp.BLOCK_RESERVED) <= hp.SM_SHARED
 
 
 def _within_terms(got, exact, mag):
@@ -393,13 +402,15 @@ def test_kernel_matches_plain_on_cuda_bfloat16(name):
     """test_kernel_matches_plain_on_cuda over bfloat16 blocks (w and v
     rounded, r rounded inside the pass): z and xv bit for bit the
     rounded route's, g within 1e-5 · Σ|terms| of the float64 sum of the
-    same rounded operands."""
+    same rounded operands. 1,029 rows end mid-tile and mid-group; 3,016
+    columns are config 5's block at 9.5M rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hot_pass kernel has no CPU "
                     "mode (chip_smoke.py holds it on the card)")
     loss = LOSSES[name][0]
     for n, h, cold in ((4097, 600, True), (1000, 40, False),
-                       (513, 2984, True)):
+                       (513, 2984, True), (1029, 3016, True),
+                       (1029, 3016, False)):
         b = {k: x.cuda() for k, x in _bf16_block(9, name, n, h).items()}
         if not cold:
             b["cold_z"] = b["cold_zv"] = None
