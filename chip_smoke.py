@@ -64,7 +64,10 @@ code is non-zero:
              labels). train_bf16_parity: the same in bfloat16.
 8. sparse_train — the config-5 path: Criteo-shaped sparse data from a
              seed (10,000,000 rows, d = 1,000,000, 32 slots, Zipf(1.3)
-             columns; 5% held out), fitted through GameEstimator.fit with
+             columns; 5% held out; generated by a child process that
+             starts after serve and runs beside the config-4 phases,
+             "generate_seconds" the wait that is left), fitted through
+             GameEstimator.fit with
              one ELL sparse fixed effect (hybrid=False, so ell_scatter
              gets all 9.5M training rows; L-BFGS, 60 iterations, L2 1.0)
              and validation AUC; then a TRON fit of the same coordinate.
@@ -263,6 +266,43 @@ code is non-zero:
              bfloat16 variant (bench.py:227–231, the same X rounded to
              bfloat16), which must allocate no float32 copy of X.
 
+Observability (photon_ml_torch.obs) rides on phases that already run,
+each with an "obs" line after its own ("on" names it); a failed check
+raises:
+   serve   — config (a) once more through cli.serve with --trace-out and
+             --metrics-dump (written at shutdown as run writes them):
+             serving.request spans = requests, serving.flush spans =
+             flushes, each request's four stage spans summing to it
+             within 1 µs, summarize --serving's p50 within 5% of the
+             service's histogram's, the registry's lines on /metrics,
+             serving_score two launches a flush. Then config (a)'s
+             traffic through one more server, a warm round with tracing
+             off and one with it on, then sixteen rounds in the order
+             (u t t u) × 4: the p50 of all traced requests within
+             OBS_SERVE_P50_RATIO of that of all untraced ones.
+   sparse_train — the L-BFGS fit with GameEstimator(trace=, ledger_dir=,
+             watchdog=): one estimator.fit root span, post-fit opt_iter
+             rows = iterations + 1, a clean ledger closed "ok".
+   train_resume — both legs traced, with a metrics registry and one run
+             ledger (the killed leg leaves its flushed rows and no
+             run_end): the ledger verifies, one run id, contiguous seq,
+             one closing run_end, 6 coordinate_update rows; per leg,
+             descent.update spans = updates started, re.fit_wave spans =
+             waves, checkpoint.save spans = photon_checkpoint_writes_total
+             = saves; cli/obs verify passes on the resumed leg's trace;
+             its solver host syncs equal those of train's untraced
+             updates 5-6.
+   stream_resume — both legs traced, one ledger, the default watchdog
+             armed: one live opt_iter row per accepted iteration of each
+             leg (the resumed leg appending after the killed one),
+             lbfgs.iteration, stream.pass and stream.chunk_transfer spans
+             = iterations, passes and chunks × passes, the int8 transfer
+             bytes = bytes moved, the in-flight peak ≤ 2, stream
+             checkpoint writes = saves, no watchdog row, summarize's
+             transfer share; a value-and-gradient pass traced against
+             untraced, the medians of sixteen passes in turns after a
+             warm one of each, within OBS_PASS_RATIO.
+
 The phases run in the order of the main path's data: train, its
 kernels, train_resume, train_bf16, the train parities, sparse_train,
 its kernels, sparse_down_sampled, stream_train, its kernels,
@@ -284,6 +324,7 @@ beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import logging
 import math
@@ -448,6 +489,12 @@ STEP_RUNS = 5
 DOWN_SAMPLING_RATE = 0.5
 TRAIN_KILL_AT = 5
 STREAM_KILL_AFTER = 10
+# Observability's bars on the card: a traced streamed value-and-gradient
+# pass against an untraced one (in turns, at the same iterate), and the
+# traced serving request p50 against the untraced one (in turns, on one
+# server).
+OBS_PASS_RATIO = 1.05
+OBS_SERVE_P50_RATIO = 1.10
 
 
 _T0 = time.perf_counter()
@@ -769,11 +816,30 @@ def direct_pass(np, torch, svc, traffic, want, tol, label) -> dict:
 
 def serve_config(np, torch, ss, label, model_dir, extra, traffic, want,
                  tol, clients=4, per_post=4) -> dict:
+    """One server configuration through cli.serve: ``extra`` arguments,
+    the traffic over HTTP, the scores against the oracle. With
+    ``--trace-out``/``--metrics-dump`` among them, observability is on
+    for the session as cli.serve.run turns it on, and both files are
+    written at shutdown as run writes them."""
+    from photon_ml_torch import obs
     from photon_ml_torch.cli import serve
 
     args = serve.build_parser().parse_args(
         ["--model-dir", model_dir, "--port", "0", "--device", "cuda",
          *extra])
+    traced = bool(args.trace_out or args.metrics_dump)
+    if traced:
+        obs.enable(trace=bool(args.trace_out), metrics=True)
+    try:
+        return _serve_config(np, torch, ss, serve, args, label, traffic,
+                             want, tol, clients, per_post)
+    finally:
+        if traced:
+            obs.disable()
+
+
+def _serve_config(np, torch, ss, serve, args, label, traffic, want, tol,
+                  clients, per_post) -> dict:
     server, svc = serve.create_server(args)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -848,6 +914,9 @@ def serve_config(np, torch, ss, label, model_dir, extra, traffic, want,
         server.server_close()
         svc.close()
         thread.join(timeout=30)
+        if args.trace_out or args.metrics_dump:
+            serve._dump_observability(svc, args.trace_out,
+                                      args.metrics_dump)
     lat_ms = np.asarray(latencies) * 1e3
     return {"config": label, "requests": count, "posts": len(posts) + 1,
             "clients": clients, "flushes": snap["batches_total"],
@@ -863,7 +932,8 @@ def serve_config(np, torch, ss, label, model_dir, extra, traffic, want,
             "stage_ms_mean": {
                 k: v / snap["stage_requests_total"] * 1e3
                 for k, v in snap["stage_seconds_total"].items()},
-            "re_cache": snap["re_cache"], **direct}
+            "re_cache": snap["re_cache"], **direct,
+            "metrics_text": metrics}
 
 
 def phase_serve(np, torch, card: str) -> tuple[int, int]:
@@ -893,10 +963,171 @@ def phase_serve(np, torch, card: str) -> tuple[int, int]:
         for label, extra, tr, want, tol in configs:
             out = serve_config(np, torch, ss, label, model_dir, extra, tr,
                                want, tol)
+            out.pop("metrics_text")
             launches += out["launches"]
             flushes += out["flushes"]
             emit("serve", card=card, **out)
+            if label.startswith("a:"):
+                untraced = out
+        # Config (a) traced through cli.serve's --trace-out and
+        # --metrics-dump, checked against the service's own counts.
+        files = {"--trace-out": os.path.join(tmp, "serve-trace.json"),
+                 "--metrics-dump": os.path.join(tmp, "serve-metrics.prom")}
+        traced = serve_config(np, torch, ss, "a, traced", model_dir,
+                              [a for kv in files.items() for a in kv],
+                              traffic, want32, tol32)
+        turns = overhead_turns(np, model_dir, traffic)
+        check_serve_trace(card, files, traced, untraced, turns)
     return launches, flushes
+
+
+def overhead_turns(np, model_dir, traffic, device="cuda", clients=4,
+                   per_post=4, order="uttu" * 32, parts=4) -> dict:
+    """Config (a)'s traffic through one cli.serve server, in rounds with
+    tracing off (u) and on (t, a fresh tracer and registry), in the
+    order given, after one warm round of each: the service's own latency
+    of each request (its attribution's total_ms), each round's p50, and
+    the p50 of all traced requests over that of all untraced ones.
+
+    The traffic is cut into ``parts`` slices; rounds 2k and 2k + 1 send
+    slice k mod ``parts``, so with order (u t t u)... each slice goes out
+    as often traced as not. A round lasts a fraction of a second and its
+    p50 moves by milliseconds with how the clients' posts fall into
+    flushes and with any stall of the host: many short rounds in a
+    balanced order, pooled, hold the comparison to the tracing's own
+    cost."""
+    from photon_ml_torch import obs
+    from photon_ml_torch.cli import serve
+
+    args = serve.build_parser().parse_args(
+        ["--model-dir", model_dir, "--port", "0", "--device", device])
+    server, svc = serve.create_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/score"
+    count = traffic["u"].shape[0]
+
+    def body(lo, hi):
+        return {"trace": True, "requests": [{
+            "features": {"global": traffic["x_g"][k].tolist(),
+                         "re_userId": traffic["x_u"][k].tolist(),
+                         "re_itemId": traffic["x_i"][k].tolist()},
+            "entity_ids": {"userId": int(traffic["u"][k]),
+                           "itemId": int(traffic["i"][k])},
+            "offset": float(traffic["offset"][k])}
+            for k in range(lo, hi)]}
+
+    def one_round(turn: str, part: int) -> list:
+        totals, lock = [], threading.Lock()
+        start, stop = part * count // parts, (part + 1) * count // parts
+        posts = [(lo, min(lo + per_post, stop))
+                 for lo in range(start, stop, per_post)]
+
+        def client(chunk):
+            for lo, hi in chunk:
+                resp = _post(url, body(lo, hi))
+                with lock:
+                    totals.extend(a["total_ms"]
+                                  for a in resp["attribution"])
+
+        with contextlib.ExitStack() as stack:
+            if turn == "t":
+                stack.enter_context(obs.activated(obs.Tracer(),
+                                                  obs.MetricsRegistry()))
+            with ThreadPoolExecutor(clients) as pool:
+                for f in [pool.submit(client, posts[c::clients])
+                          for c in range(clients)]:
+                    f.result()
+        return totals
+
+    totals = {"u": [], "t": []}
+    p50 = {"u": [], "t": []}
+    try:
+        for turn in "ut":  # warm both paths on this server
+            for part in range(parts):
+                one_round(turn, part)
+        for k, turn in enumerate(order):
+            got = one_round(turn, k // 2 % parts)
+            totals[turn].extend(got)
+            p50[turn].append(float(np.percentile(got, 50)))
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+        thread.join(timeout=30)
+    pooled = {k: float(np.percentile(v, 50)) for k, v in totals.items()}
+    return {"order": order, "untraced_p50_ms": p50["u"],
+            "traced_p50_ms": p50["t"],
+            "pooled_p50_ms": {"untraced": pooled["u"],
+                              "traced": pooled["t"]},
+            "ratio": pooled["t"] / pooled["u"]}
+
+
+def check_serve_trace(card: str, files: dict, traced: dict,
+                      untraced: dict, turns: dict) -> None:
+    """The traced serving session's trace and metrics dump against the
+    service's own counts: one serving.request span a request, one
+    serving.flush span a flush, four stage spans summing to each request
+    span within 1 µs, summarize --serving's p50 within 5% of the
+    service's histogram's, the registry's lines on /metrics; and the
+    traced requests' p50 against the untraced ones' in turns on one
+    server (bar: OBS_SERVE_P50_RATIO)."""
+    from photon_ml_torch import obs
+    from photon_ml_torch.cli import obs as obs_cli
+
+    trace = obs_cli.load_trace(files["--trace-out"])
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    counts = span_counts(trace)
+    requests = [e for e in spans if e["name"] == "serving.request"]
+    stages: dict = {}
+    for e in spans:
+        if e["name"] in ("serving.queue_wait", "serving.assemble",
+                         "serving.device_score", "serving.respond"):
+            stages.setdefault(e["args"]["parent_id"], []).append(e["dur"])
+    worst_gap_us = max(abs(sum(stages.get(e["args"]["span_id"], []))
+                           - e["dur"]) for e in requests)
+    summary = obs_cli.summarize_serving(trace)
+    own_p50 = traced["request_p50_ms"]
+    metrics_text = traced.pop("metrics_text")
+    dumped = obs.parse_prometheus_text(
+        open(files["--metrics-dump"]).read())
+    failures = []
+    if len(requests) != traced["requests"]:
+        failures.append(f"{len(requests)} serving.request spans for "
+                        f"{traced['requests']} requests")
+    if counts.get("serving.flush", {}).get("spans") != traced["flushes"]:
+        failures.append(f"{counts.get('serving.flush')} serving.flush "
+                        f"spans for {traced['flushes']} flushes")
+    if any(len(stages.get(e["args"]["span_id"], [])) != 4
+           for e in requests) or worst_gap_us > 1.0:
+        failures.append(f"stage spans sum to their request within "
+                        f"{worst_gap_us} us")
+    if abs(summary["request_latency_ms"]["p50"] - own_p50) > 0.05 * own_p50:
+        failures.append(f"summarize p50 {summary['request_latency_ms']} "
+                        f"against the service's {own_p50}")
+    if 'photon_boot_seconds{phase="total"}' not in metrics_text \
+            or 'photon_boot_seconds{phase="total"}' not in dumped:
+        failures.append("/metrics or the dump lacks the registry's lines")
+    if traced["launches"] != 2 * traced["flushes"] \
+            or untraced["launches"] != 2 * untraced["flushes"]:
+        failures.append("serving_score launches are not two a flush")
+    if turns["ratio"] > OBS_SERVE_P50_RATIO:
+        failures.append(f"traced request p50 {turns} above "
+                        f"{OBS_SERVE_P50_RATIO} of the untraced one")
+    if failures:
+        raise AssertionError("obs serve: " + "; ".join(failures))
+    emit("obs", on="serve", card=card, requests=len(requests),
+         flushes=traced["flushes"], launches=traced["launches"],
+         spans={k: v["spans"] for k, v in counts.items()},
+         stage_sum_worst_gap_us=worst_gap_us,
+         summarize_p50_ms=summary["request_latency_ms"]["p50"],
+         request_p50_ms={"traced": own_p50,
+                         "untraced": untraced["request_p50_ms"]},
+         request_p99_ms={"traced": traced["request_p99_ms"],
+                         "untraced": untraced["request_p99_ms"]},
+         post_p50_ms={"traced": traced["post_p50_ms"],
+                      "untraced": untraced["post_p50_ms"]},
+         turns=turns, p50_ratio=turns["ratio"], boot=summary.get("boot"))
 
 
 # -- train -----------------------------------------------------------------
@@ -962,11 +1193,16 @@ def run_descent(torch, coords, val, device: str,
     after each update; returns (model, history, seconds)."""
     from photon_ml_torch.evaluation.evaluators import auc
     from photon_ml_torch.game import descent
+    from photon_ml_torch.optim import lbfgs
     from photon_ml_torch.types import TaskType
 
     y_val = torch.as_tensor(val.response, device=device)
+    syncs: list = []
 
     def validation(model):
+        # The solver's host syncs so far, read after each update (a
+        # counter on the host: reading it syncs nothing).
+        syncs.append(lbfgs.minimize.host_syncs)
         return {"auc": float(auc(model.score(val), y_val))}
 
     t0 = time.perf_counter()
@@ -974,6 +1210,7 @@ def run_descent(torch, coords, val, device: str,
         TaskType.LOGISTIC_REGRESSION, coords,
         descent.CoordinateDescentConfig(SEQ, iterations=iterations),
         validation_fn=validation)
+    history.host_syncs = syncs
     return model, history, time.perf_counter() - t0
 
 
@@ -1032,7 +1269,8 @@ def phase_train(np, torch, card: str) -> dict:
     return {"coords": coords, "model": model, "gathers": gathers,
             "scatters": scatters, "train": train, "val": val,
             "aucs": aucs, "max_memory_allocated": peak,
-            "descent_seconds": descent_s}
+            "descent_seconds": descent_s,
+            "update_syncs": history.host_syncs}
 
 
 def phase_train_bf16(np, torch, card: str, train, val, f32: dict) -> dict:
@@ -1331,18 +1569,81 @@ def phase_train_parity(np, torch, card: str, train, val,
 
 # -- sparse_train ----------------------------------------------------------
 
-def make_sparse_data(np, rows: int):
+def make_sparse_data(np, rows: int, batch=None):
     """Config-5 data from the seed, the last 5% held out; the split is
-    two row-slice views of the generated arrays."""
+    two row-slice views of the generated arrays. ``batch``: the rows
+    already generated (collect_sparse_data), else they are made here."""
     from photon_ml_torch.data import sparse
     from photon_ml_torch.data.game_data import from_sparse_batch
 
-    batch, _ = sparse.synthetic_sparse(n=rows, num_features=SPARSE_DIM,
-                                       nnz_per_row=SPARSE_NNZ, seed=SEED)
+    if batch is None:
+        batch, _ = sparse.synthetic_sparse(
+            n=rows, num_features=SPARSE_DIM, nnz_per_row=SPARSE_NNZ,
+            seed=SEED)
     ds = from_sparse_batch(batch)
     n_val = max(rows // 20, 1)
     return (ds.subset(slice(0, rows - n_val)),
             ds.subset(slice(rows - n_val, rows)))
+
+
+# Config 5's rows are the longest host generation here (mostly rng.zipf,
+# which must stay the reference's draws), so a child process makes them
+# beside the config-4 phases: the same function and seed, so the same
+# bits. Its arrays come back over a pipe, in this order.
+SPARSE_FIELDS = ("indices", "values", "labels", "weights", "offsets")
+_SPARSE_CHILD = """\
+import sys
+import numpy as np
+from photon_ml_torch.data import sparse
+rows, dim, nnz, seed = map(int, sys.argv[1:])
+batch, _ = sparse.synthetic_sparse(n=rows, num_features=dim,
+                                   nnz_per_row=nnz, seed=seed)
+out = sys.stdout.buffer
+for name in %r:
+    out.write(memoryview(np.ascontiguousarray(
+        getattr(batch, name).numpy())).cast("B"))
+out.flush()
+""" % (SPARSE_FIELDS,)
+
+
+def start_sparse_data(rows: int):
+    """Start generating config 5's ``rows`` in a child process (stopped
+    at exit if still running); collect_sparse_data takes its arrays."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SPARSE_CHILD, str(rows), str(SPARSE_DIM),
+         str(SPARSE_NNZ), str(SEED)], cwd=ROOT, stdout=subprocess.PIPE)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+        proc.stdout.close()
+        proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def collect_sparse_data(np, torch, proc, rows: int):
+    """The child's SparseBatch: each array read from its pipe into place."""
+    from photon_ml_torch.data import sparse
+
+    arrays = {}
+    for name in SPARSE_FIELDS:
+        shape = (rows, SPARSE_NNZ) if name in ("indices", "values") \
+            else (rows,)
+        a = np.empty(shape, np.int32 if name == "indices" else np.float32)
+        view, got = memoryview(a).cast("B"), 0
+        while got < len(view):
+            n = proc.stdout.readinto(view[got:])
+            if not n:
+                raise RuntimeError(f"the config-5 generator stopped after "
+                                   f"{got} bytes of {name} (exit "
+                                   f"{proc.wait()})")
+            got += n
+        arrays[name] = torch.from_numpy(a)
+    if proc.wait() != 0:
+        raise RuntimeError(f"the config-5 generator exited {proc.returncode}")
+    return sparse.SparseBatch(num_features=SPARSE_DIM, **arrays)
 
 
 def sparse_estimator(device: str, optimizer: str = "LBFGS",
@@ -1404,24 +1705,58 @@ def check_sparse_fit(torch, result, label: str) -> dict:
             **record["solver"]}
 
 
-def phase_sparse_train(np, torch, card: str) -> dict:
+def phase_sparse_train(np, torch, card: str, generator) -> dict:
     import copy
 
     from photon_ml_torch.ops import sparse_aggregators as sagg
     from photon_ml_torch.ops.kernels import ell_scatter
 
+    from photon_ml_torch import obs
+    from photon_ml_torch.cli import obs as obs_cli
+    from photon_ml_torch.obs.ledger import read_rows, verify_ledger
+
     t0 = time.perf_counter()
-    train, val = make_sparse_data(np, SPARSE_ROWS)
-    generate_s = time.perf_counter() - t0
+    train, val = make_sparse_data(
+        np, SPARSE_ROWS, collect_sparse_data(np, torch, generator,
+                                             SPARSE_ROWS))
+    generate_s = time.perf_counter() - t0  # what the config-4 phases left
     est = sparse_estimator("cuda")
-    torch.cuda.reset_peak_memory_stats()
-    ell_scatter.ell_rmatvec.launches = 0  # the main path's run starts
-    ell_scatter.scatter_rowterm.launches = 0
-    result, fit_s = timed_fit(torch, est, train, val, "cuda")
-    launches = ell_scatter.ell_rmatvec.launches  # ... and ends here
-    generic = ell_scatter.scatter_rowterm.launches
-    peak = torch.cuda.max_memory_allocated()
+    # The estimator's three observability parameters, at full width.
+    tracer = obs.Tracer()
+    est.trace, est.watchdog = tracer, obs.WatchdogConfig()
+    with tempfile.TemporaryDirectory(prefix="photon-chip-smoke-") as tmp:
+        est.ledger_dir = os.path.join(tmp, "ledger")
+        torch.cuda.reset_peak_memory_stats()
+        ell_scatter.ell_rmatvec.launches = 0  # the main path's run starts
+        ell_scatter.scatter_rowterm.launches = 0
+        result, fit_s = timed_fit(torch, est, train, val, "cuda")
+        launches = ell_scatter.ell_rmatvec.launches  # ... and ends here
+        generic = ell_scatter.scatter_rowterm.launches
+        peak = torch.cuda.max_memory_allocated()
+        ledger_problems = verify_ledger(est.ledger_dir)
+        rows, _ = read_rows(est.ledger_dir)
+    est.trace = est.ledger_dir = est.watchdog = None
     fit = check_sparse_fit(torch, result, "sparse_train")
+    trace = tracer.chrome_trace()
+    roots = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+             and e["name"] == "estimator.fit"
+             and "parent_id" not in e["args"]]
+    post_fit = [r for r in rows if r["kind"] == "opt_iter"
+                and r.get("clock") == "post_fit"]
+    problems = obs_cli.verify_trace(trace) + ledger_problems
+    if len(roots) != 1 or len(post_fit) != fit["iterations"] + 1 \
+            or problems or rows[-1].get("status") != "ok":
+        raise AssertionError(
+            f"obs sparse_train: {len(roots)} estimator.fit roots, "
+            f"{len(post_fit)} post-fit opt_iter rows for "
+            f"{fit['iterations']} iterations, problems {problems[:5]}, "
+            f"last row {rows[-1]}")
+    emit("obs", on="sparse_train", card=card, fit_seconds=fit_s,
+         estimator_fit_root=True, post_fit_opt_iter_rows=len(post_fit),
+         iterations=fit["iterations"], ledger_rows=len(rows),
+         spans={k: v["spans"] for k, v in span_counts(trace).items()},
+         ell_rmatvec_launches=launches,
+         gradient_evaluations=fit["gradient_evaluations"])
     # Every scatter of the path forms its row terms in the kernel: none
     # goes through the generic route, which reads (n, k) row terms.
     if launches != fit["gradient_evaluations"] or generic:
@@ -2126,7 +2461,8 @@ def phase_stream_train(np, torch, card: str, train, val,
                          "process_peak": resource.getrusage(
                              resource.RUSAGE_SELF).ru_maxrss * 1024})
     return {"coord": coord, "w": w, "launches": launches,
-            "passes": passes, "auc": fit["auc"]}
+            "passes": passes, "auc": fit["auc"],
+            "train_seconds": record["train_seconds"]}
 
 
 # -- stream_fused kernels ---------------------------------------------------
@@ -4117,12 +4453,44 @@ def timed_manager(directory: str, saves: list):
     return Timed(directory)
 
 
+def span_counts(trace: dict) -> dict:
+    """Closed spans of a Chrome trace by name (and how many carry an
+    error tag)."""
+    out: dict = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X":
+            c = out.setdefault(e["name"], {"spans": 0, "errors": 0})
+            c["spans"] += 1
+            c["errors"] += "error" in e.get("args", {})
+    return out
+
+
+def ledger_leg(directory: str, config: dict):
+    """A run ledger opened (or resume-appended) under ``directory`` and
+    installed process-wide; returns (ledger, the previous one)."""
+    from photon_ml_torch import obs
+    from photon_ml_torch.obs.ledger import build_manifest
+
+    led = obs.RunLedger.resume(directory,
+                               manifest=build_manifest(config=config))
+    return led, obs.set_ledger(led)
+
+
 def phase_train_resume(np, torch, card: str, trained: dict) -> dict:
     """train's descent again over its coordinates, with a checkpoint
     manager, killed at the TRAIN_KILL_AT-th update and resumed: the same
-    bits as train's uninterrupted model."""
+    bits as train's uninterrupted model. Both legs run traced, with a
+    metrics registry and one run ledger (the killed leg leaves its rows
+    flushed and no run_end, as a kill would); the resumed leg's solver
+    host syncs equal those train's untraced descent made for the same
+    updates."""
+    from photon_ml_torch import obs
+    from photon_ml_torch.cli import obs as obs_cli
     from photon_ml_torch.game import descent
+    from photon_ml_torch.obs.ledger import (read_manifest, read_rows,
+                                            verify_ledger)
     from photon_ml_torch.ops.kernels import re_rows as rr
+    from photon_ml_torch.optim import lbfgs
     from photon_ml_torch.types import TaskType
 
     coords, want = trained["coords"], trained["model"]
@@ -4143,18 +4511,29 @@ def phase_train_resume(np, torch, card: str, trained: dict) -> dict:
         *(a for x in ds.feature_shards.values()
           for a in ((x.indices, x.values) if hasattr(x, "indices")
                     else (x,)))))
+    legs = {"killed": (obs.Tracer(), obs.MetricsRegistry()),
+            "resumed": (obs.Tracer(), obs.MetricsRegistry())}
     with tempfile.TemporaryDirectory(prefix="photon-chip-smoke-") as tmp:
         path = os.path.join(tmp, "checkpoint")
+        led_dir = os.path.join(tmp, "ledger")
         killed, counter = counted(coords, TRAIN_KILL_AT)
+        led, prev = ledger_leg(led_dir, {"phase": "train_resume"})
         t0 = time.perf_counter()
         try:
-            descent.run(task, killed, cfg,
-                        checkpoint_manager=timed_manager(path, saves))
+            with obs.activated(*legs["killed"]):
+                descent.run(task, killed, cfg,
+                            checkpoint_manager=timed_manager(path, saves))
         except Killed:
             pass
         else:
             raise AssertionError("train_resume: the kill did not fire")
+        finally:
+            # A kill leaves the ledger's flushed rows and no run_end.
+            led.flush()
+            obs.set_ledger(prev)
         killed_s = time.perf_counter() - t0
+        killed_saves = len(saves)
+        killed_run = read_manifest(led_dir)["run_id"]
         state = timed_manager(path, []).load(device="cuda")
         done = TRAIN_KILL_AT - 1
         if state is None or state.done_steps != done or state.complete:
@@ -4169,14 +4548,23 @@ def phase_train_resume(np, torch, card: str, trained: dict) -> dict:
             raise AssertionError("train_resume: a second descent over the "
                                  "same coordinates gave other bits")
         fresh, counter = counted(coords)
+        led, prev = ledger_leg(led_dir, {"phase": "train_resume"})
         rr.gather_rows.launches = 0  # the resumed leg starts
         rr.scatter_rows_.launches = 0
+        lbfgs.minimize.host_syncs = 0
         t0 = time.perf_counter()
-        model, history = descent.run(
-            task, fresh, cfg, checkpoint_manager=timed_manager(path, saves))
+        try:
+            with obs.activated(*legs["resumed"]):
+                model, history = descent.run(
+                    task, fresh, cfg,
+                    checkpoint_manager=timed_manager(path, saves))
+        finally:
+            led.close()
+            obs.set_ledger(prev)
         resumed_s = time.perf_counter() - t0
         gathers = rr.gather_rows.launches  # ... and ends here
         scatters = rr.scatter_rows_.launches
+        resumed_syncs = lbfgs.minimize.host_syncs
         resumed_calls = counter[0]
         final = timed_manager(path, []).load(device="cuda")
         third, counter = counted(coords)
@@ -4185,6 +4573,13 @@ def phase_train_resume(np, torch, card: str, trained: dict) -> dict:
                                checkpoint_manager=timed_manager(path, []))
         third_s = time.perf_counter() - t0
         third_calls = counter[0]
+        ledger_problems = verify_ledger(led_dir)
+        rows, row_problems = read_rows(led_dir)
+        run_id = read_manifest(led_dir)["run_id"]
+        trace_path = os.path.join(tmp, "resumed-trace.json")
+        legs["resumed"][0].dump(trace_path)
+        trace_problems = obs_cli.verify_trace(
+            obs_cli.load_trace(trace_path))
     remaining = sum(waves[cid] for cid in SEQ[done % len(SEQ):])
     if resumed_calls != updates - done or gathers != remaining \
             or scatters != remaining:
@@ -4221,6 +4616,66 @@ def phase_train_resume(np, torch, card: str, trained: dict) -> dict:
          waves=waves, bit_identical=True,
          residual_bytes=int(state.residual_total.nbytes), saves=saves,
          digest_seconds=digest_s, digest_bytes=int(digest_bytes))
+    # -- observability of the two legs ------------------------------------
+    # The untraced descent of train made these updates too: its host
+    # syncs for updates done+1 .. updates.
+    cum = trained["update_syncs"]
+    untraced_syncs = cum[updates - 1] - cum[done - 1]
+    spans = {leg: span_counts(tr.chrome_trace())
+             for leg, (tr, _) in legs.items()}
+    writes = {leg: mx.counter("photon_checkpoint_writes_total",
+                              kind="descent").value
+              for leg, (_, mx) in legs.items()}
+    refit = {leg: sum(mx.counter("photon_re_entities_refit_total",
+                                 re_type=t).value
+                      for t in ("userId", "itemId"))
+             for leg, (_, mx) in legs.items()}
+    kinds: dict = {}
+    for r in rows:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    resumed_saves = len(saves) - killed_saves
+    want_spans = {
+        "killed": {"descent.update": TRAIN_KILL_AT,
+                   "re.fit_wave": sum(waves[cid] for cid in SEQ[1:]),
+                   "checkpoint.save": killed_saves},
+        "resumed": {"descent.update": updates - done,
+                    "re.fit_wave": remaining,
+                    "checkpoint.save": resumed_saves}}
+    got_spans = {leg: {k: spans[leg].get(k, {}).get("spans", 0)
+                       for k in want_spans[leg]} for leg in legs}
+    failures = []
+    if ledger_problems or row_problems:
+        failures.append(f"ledger problems {ledger_problems} "
+                        f"{row_problems}")
+    if run_id != killed_run or [r["seq"] for r in rows] != \
+            list(range(len(rows))) or rows[-1]["kind"] != "run_end" \
+            or kinds.get("run_end") != 1:
+        failures.append("one run id, contiguous seq and one closing "
+                        "run_end across the kill")
+    if kinds.get("coordinate_update") != updates:
+        failures.append(f"{kinds.get('coordinate_update')} "
+                        f"coordinate_update rows, expected {updates}")
+    if got_spans != want_spans:
+        failures.append(f"spans {got_spans}, expected {want_spans}")
+    if spans["killed"]["descent.update"]["errors"] != 1:
+        failures.append("the killed update's span is not tagged")
+    if writes != {"killed": killed_saves, "resumed": resumed_saves}:
+        failures.append(f"checkpoint writes {writes}, saves "
+                        f"{killed_saves} and {resumed_saves}")
+    if trace_problems:
+        failures.append(f"cli/obs verify: {trace_problems[:5]}")
+    if resumed_syncs != untraced_syncs:
+        failures.append(f"the traced resumed leg made {resumed_syncs} "
+                        f"solver host syncs, train's untraced updates "
+                        f"{untraced_syncs}")
+    if failures:
+        raise AssertionError("obs train_resume: " + "; ".join(failures))
+    emit("obs", on="train_resume", card=card, ledger_rows=kinds,
+         run_id=run_id, seq_contiguous=True, spans=got_spans,
+         checkpoint_writes=writes, entities_refit=refit,
+         solver_host_syncs={"traced_resumed_leg": resumed_syncs,
+                            "untraced_train": untraced_syncs},
+         verify="ok", bit_identical=True)
     return {"gathers": gathers, "scatters": scatters}
 
 
@@ -4388,7 +4843,14 @@ def phase_down_sampling_parity(np, torch, card: str, parity: dict) -> dict:
 def phase_stream_resume(np, torch, card: str, trained: dict) -> dict:
     """stream_train's staged int8 coordinate fitted again with a bound
     step store whose save raises after iteration STREAM_KILL_AFTER, then
-    resumed from the store: stream_train's bits."""
+    resumed from the store: stream_train's bits. Both legs run traced,
+    with a metrics registry, one run ledger and the default watchdog
+    armed; then value-and-gradient passes at the final iterate, traced and
+    untraced in turns."""
+    from photon_ml_torch import obs
+    from photon_ml_torch.cli import obs as obs_cli
+    from photon_ml_torch.obs.ledger import (read_manifest, read_rows,
+                                            verify_ledger)
     from photon_ml_torch.ops.kernels import ell_scatter
     from photon_ml_torch.ops.kernels import stream_fused as sf
 
@@ -4396,42 +4858,82 @@ def phase_stream_resume(np, torch, card: str, trained: dict) -> dict:
     chunks = coord.chunked.num_chunks
     offsets = torch.zeros(coord.dataset.num_rows, device="cuda")
     saves = []
-    with tempfile.TemporaryDirectory(prefix="photon-chip-smoke-") as tmp:
-        coord.bind_step_checkpoint(os.path.join(tmp, "stream-step-1"), 1)
-        store = coord._ckpt_store
-        save = store.save
+    legs = {"killed": (obs.Tracer(), obs.MetricsRegistry()),
+            "resumed": (obs.Tracer(), obs.MetricsRegistry())}
+    leg_passes, leg_bytes, leg_rows = {}, {}, {}
+    prev_wd = obs.set_watchdog(obs.WatchdogConfig())
+    try:
+        with tempfile.TemporaryDirectory(prefix="photon-chip-smoke-") as tmp:
+            led_dir = os.path.join(tmp, "ledger")
+            coord.bind_step_checkpoint(os.path.join(tmp, "stream-step-1"),
+                                       1)
+            store = coord._ckpt_store
+            save = store.save
 
-        def killing_save(state, **kw):
-            if int(state["it"]) > STREAM_KILL_AFTER:
-                raise Killed(f"killed after iteration {STREAM_KILL_AFTER}")
+            def killing_save(state, **kw):
+                if int(state["it"]) > STREAM_KILL_AFTER:
+                    raise Killed(
+                        f"killed after iteration {STREAM_KILL_AFTER}")
+                t0 = time.perf_counter()
+                save(state, **kw)
+                saves.append(time.perf_counter() - t0)
+
+            store.save = killing_save
+            led, prev = ledger_leg(led_dir, {"phase": "stream_resume"})
+            before = dict(coord.stream.passes)
+            bytes0 = coord.stream.bytes_moved
             t0 = time.perf_counter()
-            save(state, **kw)
-            saves.append(time.perf_counter() - t0)
-
-        store.save = killing_save
-        t0 = time.perf_counter()
-        try:
-            coord.train_model(offsets)
-        except Killed:
-            pass
-        else:
-            raise AssertionError("stream_resume: the kill did not fire")
-        killed_s = time.perf_counter() - t0
-        store.save = save
-        state_bytes = os.path.getsize(os.path.join(
-            store.directory, "stream_state.npz"))
-        before = dict(coord.stream.passes)
-        counters = {"hot_margins": sf.hot_margins,
-                    "hot_rmatvec": sf.hot_rmatvec,
-                    "ell_scatter": ell_scatter.scatter_rowterm}
-        for fn in counters.values():  # the resumed leg starts
-            fn.launches = 0
-        model, resumed_s = synced_seconds(
-            torch, lambda: coord.train_model(offsets))
-        launches = {k: fn.launches  # ... and ends here
-                    for k, fn in counters.items()}
-        coord.clear_step_checkpoint()
-    passes = {k: coord.stream.passes[k] - before[k] for k in before}
+            try:
+                with obs.activated(*legs["killed"]):
+                    coord.train_model(offsets)
+            except Killed:
+                pass
+            else:
+                raise AssertionError("stream_resume: the kill did not fire")
+            finally:
+                led.flush()  # a kill leaves the flushed rows, no run_end
+                obs.set_ledger(prev)
+            killed_s = time.perf_counter() - t0
+            leg_passes["killed"] = {k: coord.stream.passes[k] - before[k]
+                                    for k in before}
+            leg_bytes["killed"] = coord.stream.bytes_moved - bytes0
+            leg_rows["killed"] = len(read_rows(led_dir)[0])
+            store.save = save
+            state_bytes = os.path.getsize(os.path.join(
+                store.directory, "stream_state.npz"))
+            before = dict(coord.stream.passes)
+            bytes0 = coord.stream.bytes_moved
+            counters = {"hot_margins": sf.hot_margins,
+                        "hot_rmatvec": sf.hot_rmatvec,
+                        "ell_scatter": ell_scatter.scatter_rowterm}
+            led, prev = ledger_leg(led_dir, {"phase": "stream_resume"})
+            for fn in counters.values():  # the resumed leg starts
+                fn.launches = 0
+            try:
+                with obs.activated(*legs["resumed"]):
+                    model, resumed_s = synced_seconds(
+                        torch, lambda: coord.train_model(offsets))
+            finally:
+                led.close()
+                obs.set_ledger(prev)
+            launches = {k: fn.launches  # ... and ends here
+                        for k, fn in counters.items()}
+            coord.clear_step_checkpoint()
+            passes = {k: coord.stream.passes[k] - before[k] for k in before}
+            leg_passes["resumed"] = passes
+            leg_bytes["resumed"] = coord.stream.bytes_moved - bytes0
+            ledger_problems = verify_ledger(led_dir)
+            rows, row_problems = read_rows(led_dir)
+            run_id = read_manifest(led_dir)["run_id"]
+            # Every copy of both legs has been read on the host by now.
+            torch.cuda.synchronize()
+            coord.stream.flush_timings()
+            trace_path = os.path.join(tmp, "resumed-trace.json")
+            legs["resumed"][0].dump(trace_path)
+            summary = obs_cli.summarize_trace(
+                obs_cli.load_trace(trace_path))
+    finally:
+        obs.set_watchdog(prev_wd)
     expect = {"hot_margins": chunks * (passes["value_grad"]
                                        + passes["value"]),
               "hot_rmatvec": chunks * passes["value_grad"],
@@ -4451,6 +4953,119 @@ def phase_stream_resume(np, torch, card: str, trained: dict) -> dict:
          resumed_seconds=resumed_s, resumed_passes=passes,
          uninterrupted_passes=trained["passes"], launches=launches,
          save_seconds=saves, state_bytes=state_bytes, bit_identical=True)
+    # -- observability of the two legs ------------------------------------
+    iterations = solve["iterations"]
+    opt = [r for r in rows if r["kind"] == "opt_iter"]
+    split = sum(r["kind"] == "opt_iter" for r in rows[:leg_rows["killed"]])
+    killed_iters = [r["iteration"] for r in opt[:split]]
+    resumed_iters = [r["iteration"] for r in opt[split:]]
+    want_iters = {"killed": list(range(1, STREAM_KILL_AFTER + 2)),
+                  "resumed": list(range(STREAM_KILL_AFTER + 1,
+                                        iterations + 1))}
+    spans = {leg: span_counts(tr.chrome_trace())
+             for leg, (tr, _) in legs.items()}
+    parsed = {leg: obs.parse_prometheus_text(mx.render_text())
+              for leg, (_, mx) in legs.items()}
+    failures = []
+    if ledger_problems or row_problems:
+        failures.append(f"ledger problems {ledger_problems} "
+                        f"{row_problems}")
+    if [r["seq"] for r in rows] != list(range(len(rows))) \
+            or rows[-1]["kind"] != "run_end" \
+            or sum(r["kind"] == "run_end" for r in rows) != 1:
+        failures.append("contiguous seq and one closing run_end")
+    if {"killed": killed_iters, "resumed": resumed_iters} != want_iters:
+        failures.append(f"opt_iter iterations {killed_iters} then "
+                        f"{resumed_iters}, expected {want_iters}")
+    if any(r["kind"] == "watchdog" for r in rows):
+        failures.append("a watchdog fired")
+    for leg in legs:
+        n_iter = len(want_iters[leg])
+        got = {k: spans[leg].get(k, {}).get("spans", 0)
+               for k in ("lbfgs.iteration", "stream.pass",
+                         "stream.chunk_transfer")}
+        want_leg = {"lbfgs.iteration": n_iter,
+                    "stream.pass": sum(leg_passes[leg].values()),
+                    "stream.chunk_transfer":
+                        chunks * sum(leg_passes[leg].values())}
+        if got != want_leg:
+            failures.append(f"{leg} spans {got}, expected {want_leg}")
+        p = parsed[leg]
+        sent = p.get('photon_transfer_bytes_total{dtype="int8",'
+                     'kind="stream"}')
+        if sent != leg_bytes[leg]:
+            failures.append(f"{leg}: {sent} transfer bytes counted, "
+                            f"{leg_bytes[leg]} moved")
+        if p.get("photon_stream_inflight_chunks_peak", 0) > 2:
+            failures.append(f"{leg}: in-flight peak "
+                            f"{p.get('photon_stream_inflight_chunks_peak')}"
+                            " over prefetch_depth 2 (no pinned chunk)")
+    writes = {leg: parsed[leg].get(
+        'photon_checkpoint_writes_total{kind="stream"}', 0.0)
+        for leg in legs}
+    if writes != {"killed": len(saves), "resumed": len(want_iters[
+            "resumed"])}:
+        failures.append(f"stream checkpoint writes {writes}, saves "
+                        f"{len(saves)} and one per resumed iteration")
+    share = summary["attribution"]["transfer_fraction_of_stream"]
+    if not 0.0 < share:
+        failures.append(f"summarize: transfer share {share}")
+    # The pass with and without the instrumentation at the final iterate
+    # (the same chunks): one warm pass of each, then sixteen in turns
+    # (untraced, traced, traced, untraced), the medians compared, so one
+    # pass that a stall of the host lengthens moves neither.
+    w = model.coefficients.means
+    timed_turns = {"untraced": [], "traced": []}
+    for k, turn in enumerate(("untraced", "traced")
+                             + ("untraced", "traced", "traced",
+                                "untraced") * 4):
+        if turn == "traced":
+            with obs.activated(obs.Tracer(), obs.MetricsRegistry()):
+                _, sec = synced_seconds(torch, lambda: coord._vg(w))
+        else:
+            _, sec = synced_seconds(torch, lambda: coord._vg(w))
+        if k >= 2:
+            timed_turns[turn].append(sec)
+    coord.stream.flush_timings()
+    pass_ratio = statistics.median(timed_turns["traced"]) / \
+        statistics.median(timed_turns["untraced"])
+    if pass_ratio > OBS_PASS_RATIO:
+        failures.append(f"a traced value-and-gradient pass took "
+                        f"{pass_ratio} of an untraced one")
+    if failures:
+        raise AssertionError("obs stream_resume: " + "; ".join(failures))
+    # The resumed leg's seconds a pass, its snapshot writes (one an
+    # iteration, timed by their spans) taken out.
+    ckpt_s = sum(e["dur"] for e in legs["resumed"][0].chrome_trace()[
+        "traceEvents"] if e.get("name") == "checkpoint.stream_state") / 1e6
+    resumed_per_pass = (resumed_s - ckpt_s) / sum(passes.values())
+    # stream_train's update: its fit's passes and the descent's scoring
+    # pass.
+    untraced_fit = trained["train_seconds"] / (
+        trained["passes"]["value_grad"] + trained["passes"]["value"] + 1)
+    tp = parsed["resumed"]
+    emit("obs", on="stream_resume", card=card, run_id=run_id,
+         opt_iter_rows={"killed": len(killed_iters),
+                        "resumed": len(resumed_iters)},
+         spans={leg: {k: v["spans"] for k, v in spans[leg].items()}
+                for leg in legs},
+         transfer={
+             "bytes": tp.get('photon_transfer_bytes_total{dtype="int8",'
+                             'kind="stream"}'),
+             "chunks": tp.get('photon_transfer_chunks_total{dtype="int8",'
+                              'kind="stream"}'),
+             "device_seconds": tp.get(
+                 'photon_transfer_seconds_total{dtype="int8",'
+                 'kind="stream"}'),
+             "inflight_peak": tp.get("photon_stream_inflight_chunks_peak")},
+         summarize=summary["attribution"], checkpoint_writes=writes,
+         watchdog_alerts=0,
+         seconds_per_pass={"traced_resumed_leg": resumed_per_pass,
+                           "untraced_stream_train": untraced_fit,
+                           "ratio": resumed_per_pass / untraced_fit,
+                           "resumed_leg_snapshot_seconds": ckpt_s},
+         value_grad_pass_turns=timed_turns,
+         value_grad_pass_ratio=pass_ratio)
     return launches
 
 
@@ -4487,6 +5102,7 @@ def main() -> int:
     checks = phase_kernels(torch, np)
     floor_us = launch_floor_us(torch)
     launches, flushes = phase_serve(np, torch, card)
+    sparse_generator = start_sparse_data(SPARSE_ROWS)
     trained = phase_train(np, torch, card)
     re_checks = phase_re_rows(np, torch, trained)
     resumed = phase_train_resume(np, torch, card, trained)
@@ -4504,7 +5120,7 @@ def main() -> int:
     phase_train_parity(np, torch, card, train4, val4, "bfloat16",
                        "train_bf16_parity", PARITY_EARLY_ITERATIONS)
     del train4, val4
-    sparse_trained = phase_sparse_train(np, torch, card)
+    sparse_trained = phase_sparse_train(np, torch, card, sparse_generator)
     ell_checks, rmatvec_checks = phase_ell_scatter(np, torch,
                                                    sparse_trained)
     down_sampled = phase_sparse_down_sampled(np, torch, card, sparse_trained)

@@ -15,14 +15,17 @@ caller passes ``"cpu"``), where the reference takes a mesh; with
 ``streaming=StreamingConfig(...)`` a sparse fixed effect becomes a
 row-streamed coordinate. ``fit(checkpoint_dir=)`` checkpoints each grid
 point's descent under ``<checkpoint_dir>/grid-<i>`` and resumes it on a
-rerun. Not ported yet, each raising and naming the slice that ports it:
-span traces, the run ledger, convergence watchdogs and the projected
-staging pipeline (slice 6), factored random effects, ``projector=RANDOM``
-and gated sweeps (slice 8), and Avro ingestion (slice 9).
+rerun. ``trace=`` (an ``obs.Tracer``), ``ledger_dir=`` (the run ledger)
+and ``watchdog=`` (an ``obs.WatchdogConfig``) instrument each fit
+(docs/OBSERVABILITY.md). Not ported yet, each raising and naming the
+slice that ports it: the projected staging pipeline (slice 6), factored
+random effects, ``projector=RANDOM`` and gated sweeps (slice 8), and
+Avro ingestion (slice 9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -31,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from photon_ml_torch import not_ported
+from photon_ml_torch import not_ported, obs
 from photon_ml_torch.api.configs import (CoordinateConfiguration,
                                          FactoredRandomEffectDataConfiguration,
                                          FixedEffectDataConfiguration,
@@ -92,9 +95,6 @@ class GameEstimator:
                 (staging, "staging (the projected staging pipeline)", 6),
                 (staging_cache_dir, "staging_cache_dir (the staging cache)",
                  6),
-                (trace, "trace (span tracing)", 6),
-                (ledger_dir, "ledger_dir (the run ledger)", 6),
-                (watchdog, "watchdog (convergence watchdogs)", 6),
                 (sweep, "sweep (dirty-gated incremental sweeps)", 8),
                 (ingest, "ingest (parallel Avro ingestion)", 9)):
             if value is not None:
@@ -110,6 +110,17 @@ class GameEstimator:
         # the row-streamed path.
         self.streaming = streaming
         self.compute_variances_at_end = compute_variances_at_end
+        # Span tracing: an obs.Tracer activated for the duration of each
+        # fit(). None (the default) costs nothing.
+        self.trace = trace
+        # Run ledger: when set, each fit() writes convergence telemetry
+        # under this directory (manifest + append-as-produced rows),
+        # unless a ledger is already active, which then takes the rows.
+        self.ledger_dir = ledger_dir
+        # Convergence watchdogs: a WatchdogConfig armed for the duration
+        # of fit(). None (default) = every optimizer site pays one None
+        # check.
+        self.watchdog = watchdog
         self.loss = losses_mod.loss_for_task(self.task)
         # (cache key, coords) of the last fit: repeated fits on the SAME
         # dataset (tuning trials) swap optimization configs instead of
@@ -243,6 +254,78 @@ class GameEstimator:
             checkpoint_dir: Optional[str] = None) -> list[GameResult]:
         """Train one GAME model per point of the regularization grid.
 
+        Returns one GameResult per grid combination (see :meth:`_fit`).
+
+        With ``GameEstimator(trace=...)`` set, the whole fit runs under
+        that tracer (an ``estimator.fit`` root span; staging, descent
+        updates, streamed passes and checkpoint writes nest below it) —
+        dump it afterwards with ``trace.dump(path)``. With
+        ``ledger_dir=...`` set, the fit records a run ledger there
+        (resume-appending when one with the same run identity already
+        exists), closed with status ``ok`` or ``error``;
+        ``watchdog=...`` arms the convergence watchdogs for the
+        duration.
+        """
+        with contextlib.ExitStack() as stack:
+            if self.watchdog is not None:
+                prev_wd = obs.set_watchdog(self.watchdog)
+                stack.callback(obs.set_watchdog, prev_wd)
+            if self.ledger_dir and obs.ledger() is None:
+                led = obs.RunLedger.resume(
+                    self.ledger_dir, manifest=self.ledger_manifest())
+                prev_led = obs.set_ledger(led)
+                stack.callback(obs.set_ledger, prev_led)
+
+                # Closed via the stack even when the fit raises: a
+                # crashed fit keeps its curve prefix, stamped with how it
+                # ended.
+                def _close(exc_type, exc, tb, _led=led):
+                    _led.close(status="ok" if exc_type is None
+                               else "error")
+                    return False
+
+                stack.push(_close)
+            if self.trace is not None:
+                stack.enter_context(obs.activated(trace_obj=self.trace))
+                stack.enter_context(
+                    obs.span("estimator.fit", cat="driver",
+                             coordinates=list(self.coordinate_configs)))
+            return self._fit(data, validation_data, initial_models,
+                             locked_coordinates, checkpoint_dir)
+
+    def ledger_manifest(self) -> dict:
+        """Creator-side run-ledger manifest: the configuration this
+        estimator can describe up front, the reference's keys. Run
+        IDENTITY (dataset digest etc.) is stamped by descent.run's
+        fingerprint machinery at the first update. One device: the
+        reference's one-device mesh shape."""
+        from photon_ml_torch.obs.ledger import build_manifest
+
+        config = {
+            "task": self.task.value,
+            "update_sequence": list(self.update_sequence),
+            "iterations": self.descent_iterations,
+            "coordinates": {
+                cid: {"data": descent._jsonable(cc.data),
+                      "optimization": descent._jsonable(cc.optimization),
+                      "reg_weight_grid": list(cc.reg_weight_grid)}
+                for cid, cc in self.coordinate_configs.items()},
+            "streaming": descent._jsonable(self.streaming),
+            "sweep": None,
+            "normalization": {
+                s: descent.normalization_digest(ctx)
+                for s, ctx in self.normalization.items()},
+        }
+        return build_manifest(config=config,
+                              mesh_shape={"data": 1, "model": 1})
+
+    def _fit(self, data: GameDataset,
+             validation_data: Optional[GameDataset] = None,
+             initial_models: Optional[dict] = None,
+             locked_coordinates: Optional[set[str]] = None,
+             checkpoint_dir: Optional[str] = None) -> list[GameResult]:
+        """Train one GAME model per point of the regularization grid.
+
         Returns one GameResult per grid combination (cartesian product of
         each coordinate's ``reg_weight_grid``), mirroring the reference's
         Seq[GameOptimizationConfiguration] loop. Coordinates (staging,
@@ -294,13 +377,17 @@ class GameEstimator:
             manager = (CheckpointManager(
                 os.path.join(checkpoint_dir, f"grid-{grid_index}"))
                 if checkpoint_dir else None)
-            model, history = descent.run(
-                self.task, coords,
-                descent.CoordinateDescentConfig(self.update_sequence,
-                                                self.descent_iterations),
-                initial_models=initial_models,
-                locked_coordinates=locked_coordinates,
-                validation_fn=val_fn, checkpoint_manager=manager)
+            led = obs.ledger()
+            bound = (led.bound(grid=grid_index) if led is not None
+                     else contextlib.nullcontext())
+            with bound:
+                model, history = descent.run(
+                    self.task, coords,
+                    descent.CoordinateDescentConfig(self.update_sequence,
+                                                    self.descent_iterations),
+                    initial_models=initial_models,
+                    locked_coordinates=locked_coordinates,
+                    validation_fn=val_fn, checkpoint_manager=manager)
             model = self._finalize_variances(model, coords, data)
             evaluation = (self._evaluate(model, validation_data)
                           if validation_data is not None else None)

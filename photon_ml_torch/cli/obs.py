@@ -1,0 +1,1024 @@
+"""Trace-file and run-ledger tooling (docs/OBSERVABILITY.md).
+
+Port of ``photon_ml_tpu/cli/obs.py`` (the reference's ``photon-obs``),
+run as ``python -m photon_ml_torch.cli.obs``. It reads the reference's
+formats, so it summarizes, verifies, tails and diffs traces and ledgers
+written by either package.
+
+``summarize trace.json`` renders the phase waterfall, the top-span table,
+and the transfer-vs-pass attribution from a Chrome trace-event file
+produced by ``GameEstimator(trace=...)`` or ``cli/serve.py --trace-out``
+(``--serving``: the request-path view). On a card the streamed chunk
+transfers carry device time (CUDA events) and each ``stream.pass`` span
+its device seconds as ``args.device_seconds``; the attribution then
+divides device time by device time.
+
+``tail <ledger-dir>`` renders a LIVE run from its run ledger
+(obs/ledger.py): current coordinate/iteration, objective value, an ETA
+from the iteration-time EMA, and the transfer fraction.
+
+``diff <runA> <runB>`` compares two ledgers: config delta,
+value-vs-wall-clock and value-vs-passes convergence overlay,
+time-to-target-value, final metric deltas.
+
+``verify <trace.json | ledger-dir>``: traces must load with closed,
+properly nested spans; ledgers must have a CRC-committed manifest and
+contiguous, CRC-clean, monotone telemetry rows.
+
+No torch anywhere on these paths: the CLI runs on any box.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+from typing import Optional
+
+from photon_ml_torch.obs.ledger import (LedgerError, diff_ledgers,
+                                      read_manifest, read_rows,
+                                      verify_ledger)
+
+# Child spans may start marginally before their parent's exported ts:
+# the parent's wall anchor and the child's are sampled by different
+# clock reads microseconds apart. Containment is asserted with slack.
+_NEST_SLACK_US = 500.0
+
+
+def load_trace(path: str) -> dict:
+    with open(path) as f:
+        obj = json.load(f)
+    if not isinstance(obj, dict) or "traceEvents" not in obj:
+        raise ValueError(f"{path} is not a Chrome trace-event file "
+                         f"(no traceEvents key)")
+    return obj
+
+
+def _spans(trace: dict) -> list[dict]:
+    return [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+
+
+def _instants(trace: dict, name: Optional[str] = None) -> list[dict]:
+    evs = [e for e in trace["traceEvents"] if e.get("ph") == "i"]
+    if name is not None:
+        evs = [e for e in evs if e.get("name") == name]
+    return evs
+
+
+# -- verify -----------------------------------------------------------------
+
+
+def verify_trace(trace: dict) -> list[str]:
+    """Structural violations (empty list = healthy). The contract CI
+    smokes: spans closed, parents resolvable, children contained."""
+    problems = []
+    spans = _spans(trace)
+    if not spans:
+        problems.append("trace contains no spans")
+        return problems
+    by_id = {}
+    for e in spans:
+        sid = e.get("args", {}).get("span_id")
+        if sid is not None:
+            by_id[sid] = e
+    for e in spans:
+        args = e.get("args", {})
+        label = f"{e.get('name')}@{e.get('ts'):.0f}us"
+        if args.get("unfinished"):
+            problems.append(f"span {label} never closed")
+        if e.get("dur", 0) < 0:
+            problems.append(f"span {label} has negative duration")
+        pid_ = args.get("parent_id")
+        if pid_ is None:
+            continue
+        parent = by_id.get(pid_)
+        if parent is None:
+            problems.append(f"span {label} parent {pid_} not in trace")
+            continue
+        # Queue-crossing spans (args.crosses_queue — a serving request's
+        # enqueue→respond life parented into the flush that scored it)
+        # START before their parent by design: the queue wait precedes
+        # the flush. Containment is then asserted at the tail only.
+        if not args.get("crosses_queue") \
+                and e["ts"] + _NEST_SLACK_US < parent["ts"]:
+            problems.append(
+                f"span {label} is not contained in its parent "
+                f"{parent.get('name')} interval")
+        elif e["ts"] + e["dur"] > parent["ts"] + parent["dur"] \
+                + _NEST_SLACK_US:
+            problems.append(
+                f"span {label} is not contained in its parent "
+                f"{parent.get('name')} interval")
+    meta = trace.get("otherData", {})
+    if meta.get("open_spans"):
+        problems.append(f"{meta['open_spans']} span(s) still open at dump")
+    opened = meta.get("bridge_spans_opened")
+    closed = meta.get("bridge_spans_closed")
+    if opened is not None and opened != closed:
+        problems.append(
+            f"event bridge opened {opened} lifecycle span(s) but closed "
+            f"{closed} — a Start/Finish pair leaked")
+    if meta.get("bridge_spans_leaked"):
+        problems.append(
+            f"{meta['bridge_spans_leaked']} bridged scope(s) never saw "
+            f"their Finish event")
+    return problems
+
+
+# -- summarize --------------------------------------------------------------
+
+
+def summarize_trace(trace: dict, top: int = 12) -> dict:
+    """Waterfall + top spans + transfer-vs-compute attribution."""
+    spans = _spans(trace)
+    if not spans:
+        return {"wall_seconds": 0.0, "waterfall": [], "top_spans": [],
+                "attribution": {}}
+    t_min = min(e["ts"] for e in spans)
+    t_max = max(e["ts"] + e["dur"] for e in spans)
+    wall_us = max(t_max - t_min, 1e-9)
+
+    ids = {e["args"]["span_id"] for e in spans
+           if "span_id" in e.get("args", {})}
+    roots = [e for e in spans
+             if e.get("args", {}).get("parent_id") not in ids]
+    roots.sort(key=lambda e: e["ts"])
+    waterfall = [{
+        "name": e["name"], "cat": e.get("cat", ""),
+        "start_s": (e["ts"] - t_min) / 1e6, "dur_s": e["dur"] / 1e6,
+        "frac": e["dur"] / wall_us,
+    } for e in roots]
+
+    agg: dict[tuple, dict] = {}
+    for e in spans:
+        a = agg.setdefault((e["name"], e.get("cat", "")),
+                           {"count": 0, "total_us": 0.0, "max_us": 0.0})
+        a["count"] += 1
+        a["total_us"] += e["dur"]
+        a["max_us"] = max(a["max_us"], e["dur"])
+    top_spans = [{
+        "name": k[0], "cat": k[1], "count": v["count"],
+        "total_s": v["total_us"] / 1e6, "max_s": v["max_us"] / 1e6,
+        "frac_of_wall": v["total_us"] / wall_us,
+    } for k, v in sorted(agg.items(), key=lambda kv: -kv[1]["total_us"])]
+
+    # Transfer vs compute: transfer = the device_put accounting spans
+    # (cat "transfer"); the denominator is the streamed-pass time when
+    # passes exist (the bench-comparable fraction), else the wall.
+    transfer_us = sum(e["dur"] for e in spans
+                      if e.get("cat") == "transfer")
+    # A pass timed on the card (args.device_seconds) is compared on the
+    # card's clock: its transfers are device-timed too.
+    pass_host_us = sum(e["dur"] for e in spans
+                       if e["name"] == "stream.pass")
+    pass_us = sum(e.get("args", {}).get("device_seconds", e["dur"] / 1e6)
+                  * 1e6 for e in spans if e["name"] == "stream.pass")
+    # Per-dtype attribution: every chunk-transfer span carries its
+    # chunk's storage dtype (f32/bf16/int8 — the quantized-streaming
+    # lever), so the stream's byte/second split per dtype falls out of
+    # the same spans (counter counterpart:
+    # photon_transfer_bytes_total{kind="stream",dtype=...}).
+    by_dtype: dict = {}
+    for e in spans:
+        if e.get("cat") != "transfer":
+            continue
+        args = e.get("args", {})
+        d = by_dtype.setdefault(str(args.get("dtype", "unknown")),
+                                {"seconds": 0.0, "bytes": 0, "chunks": 0})
+        d["seconds"] += e["dur"] / 1e6
+        d["bytes"] += int(args.get("bytes", 0) or 0)
+        d["chunks"] += 1
+    denom = pass_us if pass_us > 0 else wall_us
+    attribution = {
+        "transfer_seconds": transfer_us / 1e6,
+        "stream_pass_seconds": pass_us / 1e6,
+        "stream_pass_host_seconds": pass_host_us / 1e6,
+        "wall_seconds": wall_us / 1e6,
+        "transfer_fraction_of_stream": transfer_us / denom,
+        "transfer_fraction_of_wall": transfer_us / wall_us,
+        "transfer_by_dtype": by_dtype,
+    }
+    root_cover = sum(e["dur"] for e in roots)
+    return {
+        "wall_seconds": wall_us / 1e6,
+        "top_level_coverage": min(root_cover / wall_us, 1.0),
+        "waterfall": waterfall[:max(top, len(waterfall))],
+        "top_spans": top_spans[:top],
+        "attribution": attribution,
+    }
+
+
+_REQUEST_STAGES = ("serving.queue_wait", "serving.assemble",
+                   "serving.device_score", "serving.respond")
+
+
+def _pctl(sorted_vals: list, p: float) -> float:
+    """Nearest-rank percentile over a pre-sorted list (stdlib-only —
+    this module must run without numpy)."""
+    if not sorted_vals:
+        return 0.0
+    k = max(0, min(len(sorted_vals) - 1,
+                   round(p / 100.0 * (len(sorted_vals) - 1))))
+    return float(sorted_vals[k])
+
+
+def _boot_waterfall(spans: list[dict]) -> Optional[dict]:
+    """The ``serving.boot`` span + its ``boot.*`` children (map /
+    compile / warmup) as a phase waterfall — the restart tail,
+    attributed (docs/SERVING.md "Sub-second restart"). None when the
+    trace holds no boot span (a service traced after construction)."""
+    boots = [e for e in spans if e["name"] == "serving.boot"]
+    if not boots:
+        return None
+    boot = max(boots, key=lambda e: e["ts"])  # the newest (re)boot
+    bid = boot.get("args", {}).get("span_id")
+    phases = [{
+        "phase": c["name"],
+        "start_ms": (c["ts"] - boot["ts"]) / 1e3,
+        "dur_ms": c["dur"] / 1e3,
+        "frac": c["dur"] / max(boot["dur"], 1e-9),
+    } for c in sorted((e for e in spans
+                       if e["name"].startswith("boot.")
+                       and e.get("args", {}).get("parent_id") == bid),
+                      key=lambda c: c["ts"])]
+    return {"total_ms": boot["dur"] / 1e3, "boots": len(boots),
+            "phases": phases}
+
+
+def summarize_serving(trace: dict) -> dict:
+    """Request-path view of a serving trace (``summarize --serving``):
+    request latency percentiles from the ``serving.request`` spans,
+    stage attribution (where request time went across queue wait /
+    assemble / device score / respond), flush stats, and the slowest
+    request's waterfall — the per-request counterpart of the batch-side
+    transfer attribution."""
+    spans = _spans(trace)
+    requests = [e for e in spans if e["name"] == "serving.request"]
+    flushes = [e for e in spans if e["name"] == "serving.flush"]
+    boot = _boot_waterfall(spans)
+    if not requests:
+        return {"requests": 0, "flushes": len(flushes), "boot": boot}
+    durs_ms = sorted(e["dur"] / 1e3 for e in requests)
+    total_ms = sum(durs_ms)
+    by_parent: dict = {}
+    for e in spans:
+        pid_ = e.get("args", {}).get("parent_id")
+        if pid_ is not None and e["name"] in _REQUEST_STAGES:
+            by_parent.setdefault(pid_, []).append(e)
+    stage_ms = {s: 0.0 for s in _REQUEST_STAGES}
+    for e in spans:
+        if e["name"] in stage_ms:
+            stage_ms[e["name"]] += e["dur"] / 1e3
+    attributed = sum(stage_ms.values())
+    slowest = max(requests, key=lambda e: e["dur"])
+    slow_id = slowest.get("args", {}).get("span_id")
+    waterfall = [{
+        "stage": c["name"], "start_ms": (c["ts"] - slowest["ts"]) / 1e3,
+        "dur_ms": c["dur"] / 1e3,
+        "frac": c["dur"] / max(slowest["dur"], 1e-9),
+    } for c in sorted(by_parent.get(slow_id, []), key=lambda c: c["ts"])]
+    return {
+        "requests": len(requests),
+        "flushes": len(flushes),
+        "boot": boot,
+        "request_latency_ms": {
+            "p50": _pctl(durs_ms, 50), "p95": _pctl(durs_ms, 95),
+            "p99": _pctl(durs_ms, 99), "max": durs_ms[-1],
+            "mean": total_ms / len(durs_ms),
+        },
+        "request_seconds_total": total_ms / 1e3,
+        "stage_attribution": {
+            s: {"seconds": stage_ms[s] / 1e3,
+                "frac_of_request_time": stage_ms[s] / max(total_ms, 1e-9)}
+            for s in _REQUEST_STAGES},
+        "attributed_fraction": attributed / max(total_ms, 1e-9),
+        "slowest_request": {
+            "request_id": slowest.get("args", {}).get("request_id"),
+            "total_ms": slowest["dur"] / 1e3,
+            "waterfall": waterfall,
+        },
+    }
+
+
+def _render_boot(boot: Optional[dict]) -> list:
+    if not boot:
+        return []
+    out = [f"boot waterfall (serving.boot, {boot['total_ms']:.1f}ms"
+           + (f", {boot['boots']} boot(s) in trace — newest shown"
+              if boot["boots"] > 1 else "") + "):"]
+    for p in boot["phases"]:
+        out.append(f"  {p['start_ms']:8.1f}ms  {_bar(p['frac'])} "
+                   f"{p['dur_ms']:8.1f}ms  {p['phase']}")
+    out.append("")
+    return out
+
+
+def render_serving_summary(summary: dict) -> str:
+    if not summary.get("requests"):
+        head = _render_boot(summary.get("boot"))
+        return "\n".join(head) + (
+            f"no serving.request spans in this trace "
+            f"({summary.get('flushes', 0)} flush span(s)) — was the "
+            f"service traced? (obs.enable() before requests arrive)")
+    lat = summary["request_latency_ms"]
+    out = _render_boot(summary.get("boot"))
+    out += [f"{summary['requests']} request(s) over "
+            f"{summary['flushes']} flush(es); request latency "
+            f"p50 {lat['p50']:.2f}ms  p95 {lat['p95']:.2f}ms  "
+            f"p99 {lat['p99']:.2f}ms  max {lat['max']:.2f}ms", "",
+            "stage attribution (of total request time, "
+            f"{summary['request_seconds_total']:.3f}s):"]
+    for stage, a in summary["stage_attribution"].items():
+        out.append(f"  {stage:<22} {_bar(a['frac_of_request_time'])} "
+                   f"{a['frac_of_request_time']:>6.1%}  "
+                   f"{a['seconds']:.3f}s")
+    out.append(f"  (stages cover {summary['attributed_fraction']:.1%} "
+               f"of request time; the gap is batcher wakeup jitter)")
+    slow = summary["slowest_request"]
+    out += ["", f"slowest request (id {slow['request_id']}, "
+                f"{slow['total_ms']:.2f}ms):"]
+    for w in slow["waterfall"]:
+        out.append(f"  {w['start_ms']:8.2f}ms  {_bar(w['frac'])} "
+                   f"{w['dur_ms']:8.2f}ms  {w['stage']}")
+    return "\n".join(out)
+
+
+def _bar(frac: float, width: int = 30) -> str:
+    n = max(0, min(width, round(frac * width)))
+    return "#" * n + "." * (width - n)
+
+
+# -- kernel view (summarize --kernels) --------------------------------------
+
+
+def summarize_kernels(trace: dict) -> dict:
+    """Per-kernel attribution from the registry's timeline markers.
+
+    Every fresh (kernel, dtype, backend) resolution drops a
+    ``kernel.resolve`` instant (ops/kernels/registry.py), and every loud
+    degradation drops a ``kernel_fallback`` instant via the event bridge
+    — so a trace carries the full build ledger: which fused programs
+    were built, on which backend, for which dtypes, and why any of them
+    fell back to XLA. A kernel that resolved to BOTH backends in one
+    trace is flagged mixed-backend: flag flips mid-run mean two compiled
+    programs for one site (docs/KERNELS.md "The failure ladder")."""
+    kernels: dict[str, dict] = {}
+
+    def row(name: str) -> dict:
+        return kernels.setdefault(name, {
+            "builds": 0, "backends": set(), "dtypes": set(),
+            "interpret": False, "fallbacks": 0, "fallback_reasons": []})
+
+    for e in _instants(trace, "kernel.resolve"):
+        a = e.get("args", {})
+        r = row(str(a.get("kernel")))
+        r["builds"] += 1
+        r["backends"].add(str(a.get("backend")))
+        r["dtypes"].add(str(a.get("dtype")))
+        r["interpret"] = r["interpret"] or bool(a.get("interpret"))
+    for e in _instants(trace, "kernel_fallback"):
+        a = e.get("args", {})
+        r = row(str(a.get("kernel")))
+        r["fallbacks"] += 1
+        reason = str(a.get("reason"))
+        if reason not in r["fallback_reasons"]:
+            r["fallback_reasons"].append(reason)
+
+    out_rows = []
+    for name in sorted(kernels):
+        r = kernels[name]
+        out_rows.append({
+            "kernel": name, "builds": r["builds"],
+            "backends": sorted(r["backends"]),
+            "dtypes": sorted(r["dtypes"]),
+            "interpret": r["interpret"],
+            "mixed_backend": len(r["backends"]) > 1,
+            "fallbacks": r["fallbacks"],
+            "fallback_reasons": r["fallback_reasons"]})
+    return {
+        "kernels": out_rows,
+        "builds": sum(r["builds"] for r in out_rows),
+        "fallbacks": sum(r["fallbacks"] for r in out_rows),
+        "mixed_backend": [r["kernel"] for r in out_rows
+                          if r["mixed_backend"]],
+    }
+
+
+def render_kernel_summary(summary: dict) -> str:
+    rows = summary["kernels"]
+    if not rows:
+        return ("no kernel.resolve markers in this trace — either no "
+                "registry kernel was enabled, or the run predates the "
+                "kernel registry (docs/KERNELS.md)")
+    out = [f"{summary['builds']} kernel program build(s) across "
+           f"{len(rows)} kernel(s); {summary['fallbacks']} fallback(s)",
+           "",
+           f"  {'kernel':<18} {'builds':>6}  {'backend(s)':<22} "
+           f"{'dtype(s)':<14} {'fallbacks':>9}"]
+    for r in rows:
+        backends = ",".join(r["backends"])
+        if r["interpret"]:
+            backends += " (interpret)"
+        out.append(f"  {r['kernel']:<18} {r['builds']:>6}  "
+                   f"{backends:<22} {','.join(r['dtypes']):<14} "
+                   f"{r['fallbacks']:>9}")
+    for r in rows:
+        for reason in r["fallback_reasons"]:
+            out.append(f"    {r['kernel']}: fell back — {reason}")
+    if summary["mixed_backend"]:
+        out += ["", "  WARNING: mixed backends in one trace for "
+                    f"{', '.join(summary['mixed_backend'])} — a flag "
+                    f"flip mid-run built two programs for one site"]
+    return "\n".join(out)
+
+
+def render_summary(summary: dict) -> str:
+    out = [f"wall {summary['wall_seconds']:.3f}s; top-level spans cover "
+           f"{summary.get('top_level_coverage', 0.0):.0%} of it", "",
+           "phase waterfall (top-level spans):"]
+    for w in summary["waterfall"]:
+        out.append(f"  {w['start_s']:9.3f}s  {_bar(w['frac'])} "
+                   f"{w['dur_s']:9.3f}s  {w['name']} [{w['cat']}]")
+    out += ["", f"top spans by total time:"]
+    out.append(f"  {'name':<28} {'cat':<10} {'count':>6} {'total_s':>9} "
+               f"{'max_s':>8} {'% wall':>7}")
+    for t in summary["top_spans"]:
+        out.append(f"  {t['name']:<28} {t['cat']:<10} {t['count']:>6} "
+                   f"{t['total_s']:>9.3f} {t['max_s']:>8.3f} "
+                   f"{t['frac_of_wall']:>6.1%}")
+    a = summary["attribution"]
+    out += ["", "transfer vs compute:"]
+    out.append(f"  host→device transfer {a['transfer_seconds']:.3f}s of "
+               f"{a['stream_pass_seconds']:.3f}s streamed-pass time "
+               f"({a['transfer_fraction_of_stream']:.1%}); "
+               f"{a['transfer_fraction_of_wall']:.1%} of wall")
+    for dt, d in sorted(a.get("transfer_by_dtype", {}).items()):
+        out.append(f"    dtype={dt:<9} {d['seconds']:.3f}s  "
+                   f"{d['bytes'] / 2**20:.2f} MiB over "
+                   f"{d['chunks']} chunk transfer(s)")
+    return "\n".join(out)
+
+
+# -- run-ledger views (docs/OBSERVABILITY.md "The run ledger") --------------
+
+
+def _find_max_iterations(node, coordinate: Optional[str]) -> Optional[int]:
+    """Best-effort ``max_iterations`` for the coordinate from the
+    manifest config tree (for the tail ETA; None when undiscoverable)."""
+    if isinstance(node, dict):
+        coords = node.get("coordinates")
+        if coordinate and isinstance(coords, dict) \
+                and coordinate in coords:
+            node = coords[coordinate]
+        stack = [node]
+        while stack:
+            cur = stack.pop()
+            if isinstance(cur, dict):
+                if isinstance(cur.get("max_iterations"), int):
+                    return cur["max_iterations"]
+                stack.extend(cur.values())
+            elif isinstance(cur, list):
+                stack.extend(cur)
+    return None
+
+
+def publish_summary(rows: list[dict]) -> dict:
+    """The publication view of a ledger's ``publish`` rows (the
+    serving/publish.py ladder records one per phase): delta versions,
+    canary verdicts, rollbacks — what ``tail --publish`` renders."""
+    pubs = [r for r in rows if r.get("kind") == "publish"]
+    if not pubs:
+        return {}
+    published = [r for r in pubs if r.get("phase") == "published"]
+    out: dict = {
+        "rows": len(pubs),
+        "published": len(published),
+        "current_version": (int(published[-1].get("version", 0))
+                            if published else 0),
+        "canary_verdicts": [
+            {"version": r.get("version"), "replica": r.get("replica"),
+             "accepted": bool(r.get("accepted")),
+             "reason": r.get("reason"),
+             "burn_rate": r.get("burn_rate")}
+            for r in pubs if r.get("phase") == "canary_verdict"],
+        "rollbacks": [
+            {"version": r.get("version"), "reason": r.get("reason"),
+             "replicas": r.get("replicas")}
+            for r in pubs if r.get("phase") == "rollback"],
+        "events": [
+            {k: r.get(k) for k in ("t", "phase", "version", "replica",
+                                   "accepted", "reason", "entities",
+                                   "swap_seconds", "burn_rate")
+             if r.get(k) is not None}
+            for r in pubs],
+    }
+    if published:
+        out["last_swap_seconds"] = published[-1].get("swap_seconds")
+        out["last_entities"] = published[-1].get("entities")
+    return out
+
+
+def elastic_summary(rows: list[dict]) -> dict:
+    """The elastic-control view of a ledger's ``elastic`` rows (the
+    serving/elastic.py controller records one per decision): splits,
+    migrations, scale events, brownouts, hedge re-tunes — what ``tail
+    --elastic`` renders."""
+    el = [r for r in rows if r.get("kind") == "elastic"]
+    if not el:
+        return {}
+    by_action: dict[str, int] = {}
+    for r in el:
+        a = str(r.get("action", "?"))
+        by_action[a] = by_action.get(a, 0) + 1
+    out = {
+        "decisions": len(el),
+        "by_action": by_action,
+        "map_version": el[-1].get("map_snapshot_version"),
+        "events": [
+            {k: r.get(k) for k in
+             ("t", "action", "shard", "children", "replica", "target",
+              "source", "num_replicas", "reason", "heat_fraction",
+              "burn_rate", "inflight_frac", "hedge_after_s",
+              "hot_shards", "map_version")
+             if r.get(k) is not None} for r in el],
+    }
+    last_hedge = [r for r in el if r.get("action") == "hedge_tune"]
+    if last_hedge:
+        out["hedge_after_s"] = last_hedge[-1].get("hedge_after_s")
+    return out
+
+
+def render_elastic_tail(tail: dict) -> str:
+    """``tail --elastic``: the control loop's decision tape,
+    chronologically — splits, migrations, scale events, brownouts,
+    with each decision's triggering evidence."""
+    el = tail.get("elastic")
+    head = (f"run {tail.get('run_id', '?')}  [{tail['status']}]  "
+            f"{tail['rows']} rows")
+    if not el:
+        return head + "\n  no elastic rows in this ledger"
+    acts = ", ".join(f"{k} ×{v}" for k, v in
+                     sorted(el["by_action"].items()))
+    out = [head,
+           f"  {el['decisions']} decision(s): {acts}  "
+           f"(map v{el.get('map_version', '?')})"]
+    if el.get("hedge_after_s") is not None:
+        out.append(f"  hedge_after auto-tuned to "
+                   f"{el['hedge_after_s']:.3f}s")
+    for e in el["events"]:
+        t = f"{e.get('t', 0):9.3f}s"
+        action = e.get("action", "?")
+        line = f"  {t}  {action}"
+        if action == "split":
+            line += (f" shard {e.get('shard')} → {e.get('children')} "
+                     f"({e.get('heat_fraction', 0):.0%} of window "
+                     f"heat)")
+        elif action == "migrate":
+            line += (f" shard {e.get('shard')}: replica "
+                     f"{e.get('source')} → {e.get('target')} "
+                     f"({e.get('reason', '')})")
+        elif action in ("scale_up", "scale_down"):
+            line += (f" replica {e.get('replica')} "
+                     f"(fleet now {e.get('num_replicas')}): "
+                     f"{e.get('reason', '')}")
+        elif action == "brownout":
+            line += f" shard(s) {e.get('hot_shards')}: " \
+                    f"{e.get('reason', '')}"
+        elif action == "hedge_tune":
+            line += f" → {e.get('hedge_after_s', 0):.3f}s"
+        elif e.get("reason"):
+            line += f" — {e['reason']}"
+        if e.get("map_version") is not None:
+            line += f"  [map v{e['map_version']}]"
+        out.append(line)
+    for p in tail.get("problems", []):
+        out.append(f"  (tail problem: {p})")
+    return "\n".join(out)
+
+
+def tail_ledger(directory: str) -> dict:
+    """Snapshot of a (possibly live) run from its ledger: run identity,
+    last position, iteration-time EMA + ETA, transfer fraction."""
+    manifest = read_manifest(directory)
+    if manifest is None:
+        raise LedgerError(f"no run ledger at {directory}")
+    rows, problems = read_rows(directory)
+    out: dict = {
+        "run_id": manifest.get("run_id"),
+        "identity": manifest.get("identity"),
+        "rows": len(rows),
+        "problems": problems,
+        "status": "in progress (or killed)",
+    }
+    ends = [r for r in rows if r.get("kind") == "run_end"]
+    if ends:
+        out["status"] = f"finished ({ends[-1].get('status', 'ok')})"
+    if rows:
+        out["wall_seconds"] = float(rows[-1]["t"])
+    publish = publish_summary(rows)
+    if publish:
+        out["publish"] = publish
+    elastic = elastic_summary(rows)
+    if elastic:
+        out["elastic"] = elastic
+    alerts = [r for r in rows if r.get("kind") == "watchdog"]
+    if alerts:
+        out["watchdog_alerts"] = [
+            {"kind": a.get("watchdog_kind"), "action": a.get("action"),
+             "detail": a.get("detail")} for a in alerts]
+    iters = [r for r in rows if r.get("kind") == "opt_iter"]
+    updates = [r for r in rows if r.get("kind") == "coordinate_update"]
+    if updates:
+        out["completed_updates"] = len(updates)
+    trials = [r for r in rows if r.get("kind") == "tuning_trial"]
+    if trials:
+        out["tuning_trials"] = len(trials)
+    if not iters:
+        return out
+    last = iters[-1]
+    cur: dict = {
+        "coordinate": last.get("coordinate"),
+        "outer_iteration": last.get("outer_iteration"),
+        "iteration": last.get("iteration"),
+        "value": last.get("value"),
+        "grad_norm": last.get("grad_norm"),
+    }
+    # Iteration-time EMA over the live rows of the current coordinate
+    # (post_fit spills carry no per-iteration wall).
+    live = [r for r in iters
+            if r.get("coordinate") == last.get("coordinate")
+            and r.get("seconds") is not None]
+    if live:
+        ema = None
+        for r in live:
+            s = float(r["seconds"])
+            ema = s if ema is None else 0.7 * ema + 0.3 * s
+        cur["iteration_seconds_ema"] = round(ema, 4)
+        max_it = _find_max_iterations(manifest.get("config"),
+                                      last.get("coordinate"))
+        if max_it and last.get("iteration") is not None:
+            remaining = max(0, max_it - int(last["iteration"]))
+            cur["max_iterations"] = max_it
+            cur["eta_seconds"] = round(remaining * ema, 1)
+    if last.get("transfer_seconds") is not None and \
+            float(last["t"]) > 0:
+        cur["transfer_fraction_of_wall"] = round(
+            float(last["transfer_seconds"]) / float(last["t"]), 4)
+    out["current"] = cur
+    return out
+
+
+def render_tail(tail: dict) -> str:
+    out = [f"run {tail.get('run_id', '?')}  [{tail['status']}]  "
+           f"{tail['rows']} rows"
+           + (f", wall {tail['wall_seconds']:.1f}s"
+              if "wall_seconds" in tail else "")]
+    if tail.get("completed_updates"):
+        out.append(f"  completed coordinate updates: "
+                   f"{tail['completed_updates']}")
+    if tail.get("tuning_trials"):
+        out.append(f"  tuning trials: {tail['tuning_trials']}")
+    cur = tail.get("current")
+    if cur:
+        pos = (f"  at: coordinate {cur.get('coordinate') or '(run)'}"
+               f" outer {cur.get('outer_iteration', '-')}"
+               f" iteration {cur.get('iteration', '-')}")
+        if cur.get("max_iterations"):
+            pos += f"/{cur['max_iterations']}"
+        out.append(pos)
+        val = cur.get("value")
+        gn = cur.get("grad_norm")
+        out.append(f"  objective {val:.6g}" if val is not None else
+                   "  objective -")
+        if gn is not None:
+            out[-1] += f"  |g| {gn:.3g}"
+        if cur.get("iteration_seconds_ema") is not None:
+            line = f"  {cur['iteration_seconds_ema']:.3g}s/iteration (EMA)"
+            if cur.get("eta_seconds") is not None:
+                line += f", ETA ~{cur['eta_seconds']:.0f}s"
+            out.append(line)
+        if cur.get("transfer_fraction_of_wall") is not None:
+            out.append(f"  transfer "
+                       f"{cur['transfer_fraction_of_wall']:.1%} of wall")
+    for a in tail.get("watchdog_alerts", []):
+        out.append(f"  WATCHDOG[{a['kind']}/{a['action']}]: {a['detail']}")
+    pub = tail.get("publish")
+    if pub:
+        out.append(f"  publication: v{pub['current_version']} live, "
+                   f"{pub['published']} publish(es), "
+                   f"{len(pub['rollbacks'])} rollback(s) "
+                   f"(--publish for the ladder view)")
+    el = tail.get("elastic")
+    if el:
+        out.append(f"  elastic: {el['decisions']} decision(s), "
+                   f"map v{el.get('map_version', '?')} "
+                   f"(--elastic for the decision tape)")
+    for p in tail.get("problems", []):
+        out.append(f"  (tail problem: {p})")
+    return "\n".join(out)
+
+
+def render_publish_tail(tail: dict) -> str:
+    """``tail --publish``: the publication ladder, chronologically —
+    delta versions, canary verdicts, rollback events."""
+    pub = tail.get("publish")
+    head = (f"run {tail.get('run_id', '?')}  [{tail['status']}]  "
+            f"{tail['rows']} rows")
+    if not pub:
+        return head + "\n  no publish rows in this ledger"
+    out = [head,
+           f"  serving v{pub['current_version']}  "
+           f"({pub['published']} published, "
+           f"{len(pub['canary_verdicts'])} canary verdict(s), "
+           f"{len(pub['rollbacks'])} rollback(s))"]
+    if pub.get("last_swap_seconds") is not None:
+        out.append(f"  last swap {pub['last_swap_seconds']:.3f}s "
+                   f"({pub.get('last_entities', '?')} row(s))")
+    for e in pub["events"]:
+        t = f"{e.get('t', 0):9.3f}s"
+        phase = e.get("phase", "?")
+        line = f"  {t}  v{e.get('version', '?')} {phase}"
+        if phase == "canary_verdict":
+            line += (" ACCEPTED" if e.get("accepted")
+                     else f" REJECTED: {e.get('reason', '')}")
+            if e.get("burn_rate") is not None:
+                line += f" (burn {e['burn_rate']:.3f})"
+        elif phase == "rollback":
+            line += f" — {e.get('reason', '')}"
+        elif phase == "published":
+            line += (f" ({e.get('entities', '?')} row(s), swap "
+                     f"{e.get('swap_seconds', 0):.3f}s)")
+        elif e.get("replica") is not None:
+            line += f" (replica {e['replica']})"
+        out.append(line)
+    for p in tail.get("problems", []):
+        out.append(f"  (tail problem: {p})")
+    return "\n".join(out)
+
+
+def _overlay(curve_a: list, curve_b: list, x_key: str,
+             width: int = 56, height: int = 12,
+             y_key: str = "value") -> list[str]:
+    """Two convergence curves on one downsampled text grid
+    (A = ``a``/``*`` where they overlap, B = ``b``). ``y_key`` picks the
+    plotted series (``value`` default; ``gap`` for the duality-gap
+    certificate of the stochastic solvers) — points where the series is
+    absent/None are skipped."""
+    pts = [(float(p[x_key]), float(p[y_key]), 0) for p in curve_a
+           if p.get(y_key) is not None] + \
+          [(float(p[x_key]), float(p[y_key]), 1) for p in curve_b
+           if p.get(y_key) is not None]
+    if not pts:
+        return []
+    xs = [p[0] for p in pts]
+    vs = [p[1] for p in pts]
+    x_lo, x_hi = min(xs), max(xs)
+    v_lo, v_hi = min(vs), max(vs)
+    x_span = max(x_hi - x_lo, 1e-12)
+    v_span = max(v_hi - v_lo, 1e-12)
+    grid = [[" "] * width for _ in range(height)]
+    marks = ("a", "b")
+    for x, v, who in pts:
+        col = min(width - 1, int((x - x_lo) / x_span * (width - 1)))
+        row = min(height - 1, int((v_hi - v) / v_span * (height - 1)))
+        cell = grid[row][col]
+        grid[row][col] = ("*" if cell not in (" ", marks[who])
+                          else marks[who])
+    unit = "s" if x_key == "t" else " passes"
+    lines = [f"  {v_hi:>12.6g} |" + "".join(grid[0])]
+    lines += ["  " + " " * 12 + " |" + "".join(r) for r in grid[1:-1]]
+    lines.append(f"  {v_lo:>12.6g} |" + "".join(grid[-1]))
+    lines.append("  " + " " * 12 + " +" + "-" * width)
+    lines.append(f"  {'':12}  {x_lo:.3g}{unit}"
+                 f"{'':>{max(1, width - 24)}}{x_hi:.3g}{unit}")
+    return lines
+
+
+def _fit_wave_table(entry: dict) -> list[str]:
+    """Per-outer-iteration entities_fit/skipped/seconds table for one
+    coordinate's ``re_fit_wave`` aggregates — where a gated-vs-full run
+    pair's wall time went (docs/SWEEPS.md). A plain table, not an
+    _overlay: lane counts are discrete per-iteration totals, not a
+    convergence curve."""
+    wa = {w["outer_iteration"]: w for w in entry.get("fit_waves_a", ())}
+    wb = {w["outer_iteration"]: w for w in entry.get("fit_waves_b", ())}
+
+    def _cells(w):
+        if w is None:
+            return f"{'-':>9} {'-':>9} {'-':>8}"
+        return (f"{w['entities_fit']:>9} {w['entities_skipped']:>9} "
+                f"{w['seconds']:>8.3f}")
+
+    lines = ["  entities fit per outer iteration (A | B):",
+             f"  {'iter':>6} {'A fit':>9} {'A skip':>9} {'A secs':>8}  "
+             f"{'B fit':>9} {'B skip':>9} {'B secs':>8}"]
+    for it in sorted(set(wa) | set(wb)):
+        lines.append(f"  {it:>6} {_cells(wa.get(it))}  "
+                     f"{_cells(wb.get(it))}")
+    return lines
+
+
+def render_diff(diff: dict) -> str:
+    out = [f"run A: {diff['a']}  (run_id {diff['run_ids']['a']})",
+           f"run B: {diff['b']}  (run_id {diff['run_ids']['b']})"]
+    for side in ("a", "b"):
+        for p in diff["problems"][side]:
+            out.append(f"  ({side} tail problem: {p})")
+    delta = diff["config_delta"]
+    if delta:
+        out += ["", f"config delta ({len(delta)} key(s)):"]
+        for d in delta[:20]:
+            out.append(f"  {d['key']}: {d['a']!r} -> {d['b']!r}")
+        if len(delta) > 20:
+            out.append(f"  ... {len(delta) - 20} more")
+    else:
+        out += ["", "config delta: none (identical configuration)"]
+    for coord, entry in diff["coordinates"].items():
+        has_waves = "fit_waves_a" in entry or "fit_waves_b" in entry
+        if "curve_a" not in entry and not has_waves:
+            out += ["", f"coordinate {coord}: present in only one run"]
+            continue
+        out += ["", f"coordinate {coord}:"]
+        if "curve_a" in entry:
+            out.append(f"  final value  A {entry['final_value_a']:.6g}   "
+                       f"B {entry['final_value_b']:.6g}   "
+                       f"(delta {entry['final_value_delta']:+.3g})")
+            tta, ttb = entry["time_to_target_a"], entry["time_to_target_b"]
+            if tta and ttb:
+                out.append(
+                    f"  time to target {entry['target_value']:.6g}:  "
+                    f"A {tta['seconds']:.3f}s / {tta['passes']:.0f} passes   "
+                    f"B {ttb['seconds']:.3f}s / {ttb['passes']:.0f} passes"
+                    + (f"   (B/A {entry['time_to_target_ratio']:.2f}x)"
+                       if entry.get("time_to_target_ratio") is not None
+                       else ""))
+            out.append("  value vs wall clock (a=A, b=B, *=both):")
+            out += _overlay(entry["curve_a"], entry["curve_b"], "t")
+            out.append("  value vs streamed passes:")
+            out += _overlay(entry["curve_a"], entry["curve_b"], "passes")
+            if any(math.isfinite(p["gap"]) for c in ("curve_a", "curve_b")
+                   for p in entry[c] if p.get("gap") is not None):
+                out.append("  duality gap vs wall clock "
+                           "(a=A, b=B, *=both):")
+                out += _overlay(entry["curve_a"], entry["curve_b"], "t",
+                                y_key="gap")
+        if has_waves:
+            out += _fit_wave_table(entry)
+    fm = diff["final_metrics"]
+    coords = sorted(set(fm["a"]) | set(fm["b"]))
+    if coords:
+        out += ["", "final validation metrics:"]
+        for c in coords:
+            ma, mb = fm["a"].get(c, {}), fm["b"].get(c, {})
+            for metric in sorted(set(ma) | set(mb)):
+                va, vb = ma.get(metric), mb.get(metric)
+                d = ("" if va is None or vb is None
+                     else f"   (delta {vb - va:+.6g})")
+                out.append(f"  {c}/{metric}: A {va}   B {vb}{d}")
+    return "\n".join(out)
+
+
+def _is_ledger(path: str) -> bool:
+    return os.path.isdir(path) and \
+        os.path.exists(os.path.join(path, "manifest.json"))
+
+
+# -- CLI --------------------------------------------------------------------
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m photon_ml_torch.cli.obs",
+                                description=__doc__)
+    sub = p.add_subparsers(dest="command", required=True)
+    s = sub.add_parser("summarize",
+                       help="phase waterfall + top spans + transfer "
+                            "attribution from a trace file")
+    s.add_argument("trace", help="Chrome trace-event JSON "
+                                 "(GameEstimator(trace=...), "
+                                 "cli/serve.py --trace-out)")
+    s.add_argument("--top", type=int, default=12,
+                   help="rows in the top-span table")
+    s.add_argument("--json", action="store_true",
+                   help="machine-readable summary instead of text")
+    s.add_argument("--serving", action="store_true",
+                   help="request-path view: request latency percentiles, "
+                        "stage attribution (queue wait / assemble / "
+                        "device score / respond), and the slowest "
+                        "request's waterfall (docs/SERVING.md)")
+    s.add_argument("--kernels", action="store_true",
+                   help="kernel-registry view of a reference trace: "
+                        "per-kernel program builds by backend/dtype, "
+                        "interpret-mode markers, and fallback events with "
+                        "reasons (docs/KERNELS.md); the port has no "
+                        "kernel registry and drops no such markers")
+    v = sub.add_parser("verify",
+                       help="structural health check (CI smoke): trace "
+                            "spans closed/nested, or — for a ledger "
+                            "directory — manifest CRC committed + "
+                            "telemetry rows contiguous and CRC-clean")
+    v.add_argument("trace", help="trace JSON or run-ledger directory")
+    t = sub.add_parser("tail",
+                       help="live view of a run from its ledger: "
+                            "current coordinate/iteration, ETA from the "
+                            "iteration-time EMA, transfer fraction")
+    t.add_argument("ledger", help="run-ledger directory "
+                                  "(GameEstimator(ledger_dir=...))")
+    t.add_argument("--json", action="store_true")
+    t.add_argument("--publish", action="store_true",
+                   help="publication view: delta versions, canary "
+                        "verdicts, rollback events from the ledger's "
+                        "publish rows (the reference's serving/publish.py "
+                        "ladder; the port writes none yet)")
+    t.add_argument("--elastic", action="store_true",
+                   help="elastic-control view: splits, migrations, "
+                        "scale events, brownouts and their triggering "
+                        "evidence from the ledger's elastic rows (the "
+                        "reference's serving/elastic.py controller; the "
+                        "port writes none yet)")
+    d = sub.add_parser("diff",
+                       help="compare two run ledgers: config delta, "
+                            "convergence overlay, time-to-target, "
+                            "final metric deltas")
+    d.add_argument("run_a", help="run-ledger directory A (baseline)")
+    d.add_argument("run_b", help="run-ledger directory B")
+    d.add_argument("--json", action="store_true")
+    return p
+
+
+def _main_ledger(args) -> int:
+    try:
+        if args.command == "tail":
+            tail = tail_ledger(args.ledger)
+            if getattr(args, "publish", False):
+                print(json.dumps(tail.get("publish", {}))
+                      if args.json else render_publish_tail(tail))
+            elif getattr(args, "elastic", False):
+                print(json.dumps(tail.get("elastic", {}))
+                      if args.json else render_elastic_tail(tail))
+            else:
+                print(json.dumps(tail) if args.json
+                      else render_tail(tail))
+            return 0
+        diff = diff_ledgers(args.run_a, args.run_b)
+        if args.json:
+            print(json.dumps(diff))
+        else:
+            print(render_diff(diff))
+        return 0
+    except LedgerError as e:
+        print(f"ledger error: {e}", file=sys.stderr)
+        return 2
+
+
+def main(argv: Optional[list] = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.command in ("tail", "diff"):
+        return _main_ledger(args)
+    if args.command == "verify" and _is_ledger(args.trace):
+        problems = verify_ledger(args.trace)
+        if problems:
+            print(f"{len(problems)} ledger violation(s):")
+            for pr in problems:
+                print(f"  - {pr}")
+            return 1
+        rows, _ = read_rows(args.trace)
+        print(f"ledger ok: {len(rows)} rows, seq contiguous, CRCs clean, "
+              f"manifest committed")
+        return 0
+    try:
+        trace = load_trace(args.trace)
+    except (OSError, ValueError) as e:
+        print(f"cannot load {args.trace}: {e}", file=sys.stderr)
+        return 2
+    if args.command == "verify":
+        problems = verify_trace(trace)
+        if problems:
+            print(f"{len(problems)} trace violation(s):")
+            for pr in problems:
+                print(f"  - {pr}")
+            return 1
+        spans = len(_spans(trace))
+        print(f"trace ok: {spans} spans, all closed, nesting consistent")
+        return 0
+    if getattr(args, "serving", False):
+        summary = summarize_serving(trace)
+        print(json.dumps(summary) if args.json
+              else render_serving_summary(summary))
+        return 0
+    if getattr(args, "kernels", False):
+        summary = summarize_kernels(trace)
+        print(json.dumps(summary) if args.json
+              else render_kernel_summary(summary))
+        return 0
+    summary = summarize_trace(trace, top=args.top)
+    if args.json:
+        print(json.dumps(summary))
+    else:
+        print(render_summary(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -36,12 +36,16 @@ fingerprint (``game/descent._fingerprint``) is stored alongside and
 validated on load: a checkpoint written under a different configuration
 is discarded, not resumed.
 
+Each save is a ``checkpoint.save`` span (a streamed fit's snapshot a
+``checkpoint.stream_state`` span) and adds one to
+``photon_checkpoint_writes_total{kind="descent"|"stream"}`` when
+observability is on.
+
 Left out of the port, each with the slice that brings it: the fault
 injection hooks (``faults.fire`` / ``faults.corrupt_file``, slices 9–10),
-the gated-sweep state (slice 8: ``descent.run(sweep=)`` raises), the
-span and metrics instrumentation (the observability item of slice 6),
-and the multi-host primary-rank gate (slice 9: the port runs in one
-process, which always writes).
+the gated-sweep state (slice 8: ``descent.run(sweep=)`` raises), and the
+multi-host primary-rank gate (slice 9: the port runs in one process,
+which always writes).
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from typing import Optional
 
 import numpy as np
 
+from photon_ml_torch import obs
 from photon_ml_torch.device import DeviceLike, resolve_device
 from photon_ml_torch.game.models import CoordinateModel
 from photon_ml_torch.models import io as model_io
@@ -155,6 +160,19 @@ class CheckpointManager:
         """Persist state. ``updated`` names the coordinates whose
         coefficients changed since the last save (all, if None or if
         this process has not written a full snapshot yet)."""
+        with obs.span("checkpoint.save", cat="checkpoint",
+                      done_steps=done_steps, complete=complete):
+            self._write(task, models, done_steps=done_steps,
+                        records=records, complete=complete,
+                        fingerprint=fingerprint, updated=updated,
+                        residual_total=residual_total)
+        mx = obs.metrics()
+        if mx is not None:
+            mx.counter("photon_checkpoint_writes_total",
+                       kind="descent").inc()
+
+    def _write(self, task, models, *, done_steps, records, complete,
+               fingerprint, updated, residual_total) -> None:
         model_dir = os.path.join(self.directory, _MODEL)
         os.makedirs(model_dir, exist_ok=True)
         write_set = (set(models)
@@ -403,20 +421,26 @@ class StreamingStateStore:
         """Persist one iteration snapshot. What must match on load rides
         in ``fingerprint``. The meta's ``environment`` keeps the
         reference's layout: one process on one device here."""
-        os.makedirs(self.directory, exist_ok=True)
-        path = os.path.join(self.directory, _STREAM_STATE)
-        _preserve_file(path)
-        arrays = {k: np.asarray(v) for k, v in state.items()}
-        atomic_write(path, lambda f: np.savez(f, **arrays))
-        crc = file_crc32(path)
-        meta_path = os.path.join(self.directory, _STREAM_META)
-        _preserve_file(meta_path)
-        atomic_write(meta_path, lambda f: f.write(json.dumps({
-            "crc": crc,
-            "iteration": int(state["it"]),
-            "fingerprint": fingerprint,
-            "environment": {"num_devices": 1},
-        }).encode()))
+        with obs.span("checkpoint.stream_state", cat="checkpoint",
+                      iteration=int(state["it"])):
+            os.makedirs(self.directory, exist_ok=True)
+            path = os.path.join(self.directory, _STREAM_STATE)
+            _preserve_file(path)
+            arrays = {k: np.asarray(v) for k, v in state.items()}
+            atomic_write(path, lambda f: np.savez(f, **arrays))
+            crc = file_crc32(path)
+            meta_path = os.path.join(self.directory, _STREAM_META)
+            _preserve_file(meta_path)
+            atomic_write(meta_path, lambda f: f.write(json.dumps({
+                "crc": crc,
+                "iteration": int(state["it"]),
+                "fingerprint": fingerprint,
+                "environment": {"num_devices": 1},
+            }).encode()))
+        mx = obs.metrics()
+        if mx is not None:
+            mx.counter("photon_checkpoint_writes_total",
+                       kind="stream").inc()
         logger.debug("stream state committed: iteration %d -> %s",
                      int(state["it"]), self.directory)
 

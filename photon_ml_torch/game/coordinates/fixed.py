@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_ml_torch import obs
 from photon_ml_torch.data.batch import LabeledBatch, check_feature_dtype
 from photon_ml_torch.data.game_data import GameDataset
 from photon_ml_torch.device import DeviceLike, resolve_device
@@ -23,6 +24,7 @@ from photon_ml_torch.game.coordinates._down_sampling import (
 from photon_ml_torch.game.models import FixedEffectModel
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.normalization import NormalizationContext
+from photon_ml_torch.obs.ledger import spill_history
 from photon_ml_torch.ops import aggregators as agg
 from photon_ml_torch.ops.losses import PointwiseLoss
 from photon_ml_torch.optim import problem
@@ -118,9 +120,17 @@ class FixedEffectCoordinate:
                                  labels=batch.labels[idx],
                                  weights=batch.weights[idx] * mult,
                                  offsets=batch.offsets[idx])
-        coef, _ = problem.run(self.loss, batch, cfg,
-                              initial=Coefficients(w0), norm=self.norm,
-                              intercept_index=self.intercept_index)
+        coef, res = problem.run(self.loss, batch, cfg,
+                                initial=Coefficients(w0), norm=self.norm,
+                                intercept_index=self.intercept_index)
+        led = obs.ledger()
+        if led is not None:
+            # Post-fit spill of the solver's NaN-padded histories: one
+            # host read of two (max_iterations + 1,) vectors an update.
+            spill_history(
+                led, res.value_history[0].cpu().numpy(),
+                res.grad_norm_history[0].cpu().numpy(),
+                opt=self.config.optimizer.optimizer_type.value.lower())
         raw = Coefficients(self.norm.model_to_original_space(coef.means))
         return FixedEffectModel(shard_id=self.shard_id, coefficients=raw)
 

@@ -18,6 +18,11 @@ in bfloat16, cast after staging, as the reference casts its bucket
 blocks; the shard kept for scoring stays float32, as the reference's
 does. The solves accumulate in float32 (``ops/aggregators.py``).
 
+Each wave is a ``re.fit_wave`` span when tracing is on, adds its live
+lanes to ``photon_re_entities_refit_total{re_type=}`` and records a
+``re_fit_wave`` ledger row; the lane counts come from the host's copy of
+the bucketing, never from the card.
+
 Not ported yet, each raising if asked for: the projected and subspace
 paths, sparse shards, the staging cache, gated sweeps (and with them
 the segment rescore), Gram fits and factored warm starts.
@@ -26,12 +31,13 @@ the segment rescore), Gram fits and factored warm starts.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from photon_ml_torch import not_ported
+from photon_ml_torch import not_ported, obs
 from photon_ml_torch.data.batch import LabeledBatch, check_feature_dtype
 from photon_ml_torch.data.game_data import GameDataset, SparseShard
 from photon_ml_torch.device import DeviceLike, resolve_device
@@ -127,6 +133,8 @@ class RandomEffectCoordinate:
         self._X = put(shard, torch.float32)
         self._ids = put(ids, torch.int64)
         self._waves: list[_Wave] = []
+        # Live (non-padding) lanes of each wave, counted on the host.
+        self._lanes: list[int] = []
         y = put(dataset.response, torch.float32)
         wts = put(dataset.weights, torch.float32)
         for b in self.bucketing.buckets:
@@ -139,6 +147,7 @@ class RandomEffectCoordinate:
                 self._waves.append(_Wave(
                     X=self._X[ex].to(block_dtype), y=y[ex], w=wb, ex=ex,
                     rows=put(b.entity_rows[lo:hi], torch.int32)))
+                self._lanes.append(int((b.entity_rows[lo:hi] >= 0).sum()))
 
     @property
     def dim(self) -> int:
@@ -224,10 +233,25 @@ class RandomEffectCoordinate:
                     ) -> RandomEffectModel:
         W = self._prepare_table(initial)
         offsets = self._offsets(offsets)
-        for wave in self._waves:
-            w0 = re_rows.gather_rows(W, wave.rows)
-            re_rows.scatter_rows_(W, wave.rows,
-                                  self._solve(wave, offsets, w0))
+        led = obs.ledger()
+        mx = obs.metrics()
+        for i, wave in enumerate(self._waves):
+            t_wave = time.perf_counter()
+            # One span per wave; it times the host's side (the solver's
+            # own host reads included), not the card's work after them.
+            with obs.span("re.fit_wave", cat="train", wave=i,
+                          re_type=self.re_type):
+                w0 = re_rows.gather_rows(W, wave.rows)
+                re_rows.scatter_rows_(W, wave.rows,
+                                      self._solve(wave, offsets, w0))
+            lanes = self._lanes[i]
+            if mx is not None:
+                mx.counter("photon_re_entities_refit_total",
+                           re_type=self.re_type).inc(lanes)
+            if led is not None:
+                led.record("re_fit_wave", re_type=self.re_type, wave=i,
+                           seconds=round(time.perf_counter() - t_wave, 6),
+                           entities_fit=lanes, entities_skipped=0)
         return self._finish_model(W)
 
     def compute_model_variances(self, model: RandomEffectModel,

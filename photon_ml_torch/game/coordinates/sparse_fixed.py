@@ -39,7 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from photon_ml_torch import not_ported
+from photon_ml_torch import not_ported, obs
 from photon_ml_torch.data.batch import check_feature_dtype
 from photon_ml_torch.data.game_data import GameDataset, SparseShard
 from photon_ml_torch.data.sparse import SparseBatch
@@ -48,6 +48,7 @@ from photon_ml_torch.game.coordinates._down_sampling import (
     _advance_down_sampling, draw_down_sample)
 from photon_ml_torch.game.models import FixedEffectModel
 from photon_ml_torch.models.coefficients import Coefficients
+from photon_ml_torch.obs.ledger import spill_history
 from photon_ml_torch.ops import hybrid_sparse
 from photon_ml_torch.ops import sparse_aggregators as sagg
 from photon_ml_torch.ops.losses import PointwiseLoss
@@ -224,6 +225,14 @@ class SparseFixedEffectCoordinate:
             "gradient_evaluations": stats.gradient_evaluations,
             "hessian_vector_products": stats.hessian_vector_products,
             **sampled}
+        led = obs.ledger()
+        if led is not None:
+            # Post-fit spill of the solver's histories (one host read an
+            # update).
+            spill_history(
+                led, res.value_history[0].cpu().numpy(),
+                res.grad_norm_history[0].cpu().numpy(),
+                opt=self.config.optimizer.optimizer_type.value.lower())
         return FixedEffectModel(shard_id=self.shard_id,
                                 coefficients=Coefficients(coef.means))
 

@@ -53,6 +53,7 @@ from photon_ml_torch.optim.regularization import (intercept_mask,
                                                   l1_weights_vector, with_l2,
                                                   with_l2_value)
 from photon_ml_torch.optim.streaming import minimize_streaming
+from photon_ml_torch.utils import events as ev_mod
 
 Tensor = torch.Tensor
 
@@ -188,13 +189,30 @@ class StreamingSparseFixedEffectCoordinate:
         dtype = ss.feature_dtype_name(
             streaming.feature_dtype or default_dtype or "float32")
         shard = dataset.feature_shards[shard_id]
+        n = int(shard.indices.shape[0])
+        workers = streaming.workers or os.cpu_count() or 1
+        num_chunks = (n + streaming.chunk_rows - 1) // streaming.chunk_rows
+        emitter = ev_mod.default_emitter
+        emitter.emit(ev_mod.StreamStageStart(
+            shard_id=shard_id, num_rows=n,
+            chunk_rows=streaming.chunk_rows, num_chunks=num_chunks,
+            workers=workers))
         t0 = time.perf_counter()
-        chunked = ss.build_chunked(
-            ss.iter_shard_chunks(shard, dataset.response, dataset.weights,
-                                 streaming.chunk_rows),
-            int(shard.num_features), streaming.chunk_rows,
-            num_hot=streaming.num_hot, feature_dtype=dtype,
-            workers=streaming.workers or os.cpu_count() or 1, log=log)
+        chunked = None
+        try:
+            chunked = ss.build_chunked(
+                ss.iter_shard_chunks(shard, dataset.response,
+                                     dataset.weights, streaming.chunk_rows),
+                int(shard.num_features), streaming.chunk_rows,
+                num_hot=streaming.num_hot, feature_dtype=dtype,
+                workers=workers, log=log)
+        finally:
+            # Balanced lifecycle: a staging failure still closes the
+            # scope for listeners tracking it (the obs bridge's span).
+            emitter.emit(ev_mod.StreamStageFinish(
+                shard_id=shard_id,
+                num_chunks=chunked.num_chunks if chunked else 0,
+                seconds=time.perf_counter() - t0))
         staging_s = time.perf_counter() - t0
         coord = cls(
             dataset, chunked, shard_id, loss, config,
@@ -301,6 +319,9 @@ class StreamingSparseFixedEffectCoordinate:
                                     checkpoint_save=checkpoint_save,
                                     resume_state=resume_state,
                                     l1_weights=l1w)
+        # Every pass of the fit has been read on the host by now: record
+        # its device-timed copies (no wait).
+        self.stream.flush_timings()
         passes = {k: self.stream.passes[k] - before[k] for k in before}
         self.last_solve = {
             # The streamed solve runs L-BFGS, or OWL-QN under L1, whatever

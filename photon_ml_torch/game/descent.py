@@ -16,12 +16,17 @@ new − old``.
 With a ``checkpoint_manager`` (``game/checkpoint.py``) the loop saves
 models, progress and the (n,) residual total after every update and
 resumes from a checkpoint it finds: the reference's restart, in its
-on-disk format. Not ported yet: gated sweeps (slice 8) and the run
-ledger (the observability item of slice 6).
+on-disk format. With a run ledger active (``obs.ledger()``) the run's
+identity is bound from the same fingerprint, every row an update's
+optimizer records carries its coordinate, outer iteration and step, and
+each update adds a ``coordinate_update`` row; with a tracer active each
+update is a ``descent.update`` span. Not ported yet: gated sweeps
+(slice 8).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import hashlib
@@ -32,7 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from photon_ml_torch import not_ported
+from photon_ml_torch import not_ported, obs
 from photon_ml_torch.game.models import CoordinateModel, GameModel
 from photon_ml_torch.types import TaskType
 from photon_ml_torch.utils import events as ev_mod
@@ -111,10 +116,17 @@ def run(task: TaskType, coordinates: dict[str, object],
     device = some.device
     n = some.dataset.num_rows
 
+    led = obs.ledger()
     fingerprint = None
     resume = None
-    if checkpoint_manager is not None:
+    if checkpoint_manager is not None or led is not None:
         fingerprint = _fingerprint(task, coordinates, seq, config, locked, n)
+    if led is not None:
+        # Stamp (or validate, on a resumed append) the run ledger's
+        # identity from the SAME fingerprint the checkpoint trusts: a
+        # ledger never silently continues a different run's curve.
+        led.bind_fingerprint(fingerprint)
+    if checkpoint_manager is not None:
         resume = checkpoint_manager.load(expected_fingerprint=fingerprint,
                                          device=device)
     history = CoordinateDescentHistory()
@@ -185,20 +197,33 @@ def run(task: TaskType, coordinates: dict[str, object],
                     continue  # already covered by the checkpoint
                 coord = coordinates[cid]
                 t0 = time.monotonic()
-                if checkpoint_manager is not None:
-                    # A streamed coordinate checkpoints inside its update
-                    # too: a kill mid-L-BFGS resumes mid-optimization.
-                    bind = getattr(coord, "bind_step_checkpoint", None)
-                    if bind is not None:
-                        bind(checkpoint_manager.stream_dir(step), step)
-                # Residual offsets: everything except this coordinate.
-                offsets = base + total - scores[cid]
-                model = coord.train_model(offsets, initial=models[cid])
-                new_scores = coord.score(model)
-                total = total + new_scores - scores[cid]
-                scores[cid] = new_scores
-                models[cid] = model
-                _synchronize(device)
+                # Ledger context: every row the update's optimizer
+                # records (live opt_iter rows, post-fit spills, RE waves)
+                # carries the coordinate and step it belongs to.
+                bound = (led.bound(coordinate=cid, outer_iteration=it,
+                                   step=step)
+                         if led is not None else contextlib.nullcontext())
+                # One span per coordinate update: the coordinate's own
+                # spans (passes, fit waves) nest under it.
+                with bound, obs.span("descent.update", cat="train",
+                                     iteration=it, coordinate=cid,
+                                     step=step):
+                    if checkpoint_manager is not None:
+                        # A streamed coordinate checkpoints inside its
+                        # update too: a kill mid-L-BFGS resumes
+                        # mid-optimization.
+                        bind = getattr(coord, "bind_step_checkpoint",
+                                       None)
+                        if bind is not None:
+                            bind(checkpoint_manager.stream_dir(step), step)
+                    # Residual offsets: everything except this coordinate.
+                    offsets = base + total - scores[cid]
+                    model = coord.train_model(offsets, initial=models[cid])
+                    new_scores = coord.score(model)
+                    total = total + new_scores - scores[cid]
+                    scores[cid] = new_scores
+                    models[cid] = model
+                    _synchronize(device)
                 elapsed = time.monotonic() - t0
                 rec = {"iteration": it, "coordinate": cid,
                        "train_seconds": elapsed}
@@ -214,6 +239,11 @@ def run(task: TaskType, coordinates: dict[str, object],
                 emitter.emit(ev_mod.CoordinateUpdate(
                     iteration=it, coordinate=cid, train_seconds=elapsed,
                     validation=rec.get("validation")))
+                if led is not None:
+                    led.record("coordinate_update", coordinate=cid,
+                               outer_iteration=it, step=step,
+                               seconds=round(elapsed, 6),
+                               validation=rec.get("validation"))
                 if checkpoint_manager is not None:
                     checkpoint_manager.save(
                         task, models, done_steps=step,

@@ -1,0 +1,216 @@
+"""photon-obs: unified span tracing, metrics and the run ledger.
+
+Port of ``photon_ml_tpu/obs/__init__.py``. One process-wide switch, off
+by default. When off, every instrumented site pays exactly one ``None``
+check; when on, the stack produces:
+
+* a Chrome trace-event JSON timeline (``chrome://tracing`` / Perfetto)
+  of hierarchical spans — lifecycle scopes bridged from the Start/Finish
+  events plus explicit spans in the hot seams (chunk transfers, streamed
+  passes, L-BFGS iterations, checkpoint writes, random-effect fit waves,
+  coordinate updates, batcher flushes, serving requests);
+* a Prometheus-text metrics registry — transfer byte/second accounting
+  of the streamed chunks, the peak in-flight chunk gauge, checkpoint
+  writes, and counters fed from the event stream;
+* the run ledger (``obs/ledger.py``) and the convergence watchdogs
+  (``obs/watchdog.py``), installed process-wide by ``set_ledger`` /
+  ``set_watchdog``.
+
+Entry points: ``GameEstimator(trace=..., ledger_dir=..., watchdog=...)``,
+``python -m photon_ml_torch.cli.serve --trace-out t.json --metrics-dump
+m.prom``, and ``python -m photon_ml_torch.cli.obs
+summarize|verify|tail|diff``. See docs/OBSERVABILITY.md.
+
+Import cost: pure stdlib + numpy — no torch — so the CLI and bare
+package imports stay fast.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional
+
+from photon_ml_torch.obs.bridge import (EventSpanBridge, install_bridge,
+                                      installed_bridge, uninstall_bridge)
+from photon_ml_torch.obs.ledger import RunLedger
+from photon_ml_torch.obs.metrics import (Counter, Gauge, Histogram,
+                                       MetricsRegistry, metric_value,
+                                       parse_prometheus_text)
+from photon_ml_torch.obs.trace import Span, Tracer, WorkerTracer
+from photon_ml_torch.obs.watchdog import (ConvergenceWatchdog, WatchdogConfig,
+                                        WatchdogError,
+                                        parse_watchdog_config)
+
+__all__ = [
+    "ConvergenceWatchdog", "Counter", "EventSpanBridge", "Gauge",
+    "Histogram", "MetricsRegistry", "RunLedger", "Span", "Tracer",
+    "WatchdogConfig", "WatchdogError", "WorkerTracer", "activated",
+    "adopt_worker_context", "disable", "dump_trace", "enable",
+    "install_bridge", "installed_bridge", "instant", "ledger",
+    "metric_value", "metrics", "parse_prometheus_text",
+    "parse_watchdog_config", "set_ledger", "set_watchdog", "span",
+    "tracer", "uninstall_bridge", "watchdog_config", "worker_context",
+]
+
+_LOCK = threading.Lock()
+_TRACER: Optional[Tracer] = None
+_METRICS: Optional[MetricsRegistry] = None
+_LEDGER: Optional[RunLedger] = None
+_WATCHDOG: Optional[WatchdogConfig] = None
+
+
+def tracer() -> Optional[Tracer]:
+    """The active tracer, or None when tracing is off — THE hot-path
+    check: ``tr = obs.tracer();  if tr is not None: ...``."""
+    return _TRACER
+
+
+def metrics() -> Optional[MetricsRegistry]:
+    """The active metrics registry, or None when metrics are off."""
+    return _METRICS
+
+
+def ledger() -> Optional[RunLedger]:
+    """The active run ledger, or None when no run is being recorded —
+    the ledger sites' one None check (``led = obs.ledger(); if led is
+    not None: led.record(...)``)."""
+    return _LEDGER
+
+
+def set_ledger(led: Optional[RunLedger]) -> Optional[RunLedger]:
+    """Install ``led`` process-wide (None uninstalls); returns the
+    PREVIOUS ledger so callers can restore it. The installer owns the
+    lifecycle — close() in a finally (a crashed run keeps its prefix)."""
+    global _LEDGER
+    with _LOCK:
+        prev, _LEDGER = _LEDGER, led
+    return prev
+
+
+def watchdog_config() -> Optional[WatchdogConfig]:
+    """The installed convergence-watchdog config, or None (watchdogs
+    off — the default; each optimizer site pays one None check)."""
+    return _WATCHDOG
+
+
+def set_watchdog(cfg: Optional[WatchdogConfig]
+                 ) -> Optional[WatchdogConfig]:
+    """Install ``cfg`` process-wide (None disarms); returns the
+    previous config for restore."""
+    global _WATCHDOG
+    with _LOCK:
+        prev, _WATCHDOG = _WATCHDOG, cfg
+    return prev
+
+
+def enable(trace: bool = True, metrics: bool = True,
+           spill: Optional[str] = None
+           ) -> tuple[Optional[Tracer], Optional[MetricsRegistry]]:
+    """Turn observability on process-wide and install the event bridge.
+    ``spill`` names the JSONL side-channel spawn-pool workers append
+    their spans to (defaults to in-process tracing only)."""
+    global _TRACER, _METRICS
+    with _LOCK:
+        if trace and _TRACER is None:
+            t = Tracer(spill_path=spill)
+            t.mark_spill_owner()
+            _TRACER = t
+        if metrics and _METRICS is None:
+            _METRICS = MetricsRegistry()
+    install_bridge()
+    return _TRACER, _METRICS
+
+
+def disable() -> None:
+    """Turn observability off and detach the bridge (closing any
+    lifecycle spans it still holds open)."""
+    global _TRACER, _METRICS
+    uninstall_bridge()
+    with _LOCK:
+        _TRACER = None
+        _METRICS = None
+
+
+@contextlib.contextmanager
+def activated(trace_obj: Optional[Tracer] = None,
+              metrics_obj: Optional[MetricsRegistry] = None):
+    """Scope-local activation (``GameEstimator(trace=...)``): install the
+    given tracer/registry for the duration, restore the previous state
+    after — nested activations and an already-enabled process both
+    compose (the outermost objects win; an explicit inner tracer
+    temporarily replaces them)."""
+    global _TRACER, _METRICS
+    with _LOCK:
+        prev_t, prev_m = _TRACER, _METRICS
+        if trace_obj is not None:
+            _TRACER = trace_obj
+        if metrics_obj is not None:
+            _METRICS = metrics_obj
+    install_bridge()
+    try:
+        yield (_TRACER, _METRICS)
+    finally:
+        with _LOCK:
+            _TRACER, _METRICS = prev_t, prev_m
+        if prev_t is None and prev_m is None:
+            uninstall_bridge()
+
+
+_NULL_CM = contextlib.nullcontext()
+
+
+def span(name: str, cat: str = "app", **args):
+    """A span on the active tracer, or a shared no-op context manager
+    when tracing is off — the one-line instrumentation helper for sites
+    that don't want to hold a tracer reference."""
+    t = _TRACER
+    if t is None:
+        return _NULL_CM
+    return t.span(name, cat=cat, **args)
+
+
+def instant(name: str, cat: str = "app", **args) -> None:
+    t = _TRACER
+    if t is not None:
+        t.instant(name, cat=cat, **args)
+
+
+def dump_trace(path: str) -> None:
+    """Write the active tracer's Chrome trace JSON (bridge pairing stats
+    ride along in ``otherData`` so smoke checks can assert zero leaks)."""
+    t = _TRACER
+    if t is None:
+        return
+    b = installed_bridge()
+    t.dump(path, other_data=b.stats() if b is not None else None)
+
+
+def dump_metrics(path: str) -> None:
+    m = _METRICS
+    if m is not None:
+        m.dump(path)
+
+
+# -- spawn-pool propagation (utils/workers.py) ----------------------------
+
+
+def worker_context() -> Optional[dict]:
+    """Main-process side: what a spawn-pool worker needs to keep tracing —
+    the spill path and the submitting span as the worker's root parent.
+    None when tracing is off or has nowhere to spill."""
+    t = _TRACER
+    if t is None or t.spill_path is None:
+        return None
+    return {"spill": t.spill_path, "parent": t.current()}
+
+
+def adopt_worker_context(ctx: dict) -> None:
+    """Worker-side (from the pool initializer): install a process-local
+    spilling tracer parented under the span that built the pool."""
+    global _TRACER
+    with _LOCK:
+        if _TRACER is None:
+            _TRACER = WorkerTracer(label="worker",
+                                   spill_path=ctx.get("spill"),
+                                   default_parent=ctx.get("parent"))

@@ -1,0 +1,724 @@
+"""photon-ledger: the run ledger — convergence telemetry on disk.
+
+Port of ``photon_ml_tpu/obs/ledger.py``, in the reference's on-disk
+format, so either package's ``cli/obs.py`` reads, verifies and diffs the
+other's ledger and a ledger started by one resume-appends in the other.
+Every ``GameEstimator(ledger_dir=...)`` fit writes, under one directory,
+
+* ``manifest.json`` + ``manifest.ok`` — run id, creator-supplied config,
+  mesh shape, code/env versions, and the run IDENTITY stamped from
+  ``game/descent.py``'s checkpoint-fingerprint machinery (task, update
+  sequence, dataset digest — everything that makes a resumed run THE
+  SAME run). The ``.ok`` marker carries the manifest's CRC32 and is
+  written last (utils/diskio.py).
+* ``telemetry.jsonl`` — append-as-produced rows, one JSON object per
+  line, each carrying a contiguous ``seq`` and its own CRC32. A crashed
+  or killed run keeps its curve: the reader validates row CRCs and
+  returns the longest clean prefix, and ``RunLedger.resume`` truncates a
+  torn tail before appending — monotone ``seq`` across the crash.
+
+Row kinds (all carry ``seq``, ``t`` = seconds since the run began,
+monotone across resumes, plus any context bound by the caller —
+coordinate, outer iteration, descent step, grid point):
+
+* ``opt_iter`` — one optimizer iteration: objective value, gradient
+  norm, step size, probe/pass counts, per-iteration wall seconds, and
+  cumulative transfer byte/second counters read from the metrics
+  registry. The streamed host loop records these LIVE per accepted
+  iteration; the lane-batched L-BFGS/TRON paths spill their
+  ``value_history``/``grad_norm_history`` post-fit (``clock:
+  "post_fit"`` — wall resolution is then the coordinate update, not the
+  iteration).
+* ``coordinate_update`` — one descent step: coordinate, seconds,
+  validation metrics.
+* ``re_fit_wave`` — one random-effect fit wave: re_type, wave index,
+  seconds (host side), ``entities_fit``/``entities_skipped`` lane counts.
+* ``watchdog`` — a convergence-watchdog alert (obs/watchdog.py).
+* ``run_end`` — clean shutdown marker (its absence means the run is
+  live or was killed — ``cli/obs.py tail`` reports exactly that).
+
+The reference's ``tuning_trial``, ``publish``, ``elastic`` and
+``fabric_digest`` kinds are read by the tooling here but written only by
+slices not ported yet.
+
+Writers go through the BUFFERED ``RunLedger.record`` API — never raw
+``open``/``json.dump`` in an optimizer loop.
+
+Import cost: pure stdlib — no torch, no numpy — so ``cli/obs.py
+tail``/``diff``/``verify`` run on any box.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
+import json
+import logging
+import os
+import threading
+import time
+import uuid
+import zlib
+from typing import Optional
+
+logger = logging.getLogger("photon_ml_torch.obs")
+
+LEDGER_VERSION = 1
+_MANIFEST = "manifest.json"
+_MANIFEST_OK = "manifest.ok"
+_TELEMETRY = "telemetry.jsonl"
+
+# Keys of a game/descent.py checkpoint fingerprint that define RUN
+# identity — everything that makes "the same run" except the
+# per-coordinate optimizer configs (a reg-weight grid / tuning sweep is
+# ONE run whose trials share a ledger; the full per-config digests are
+# recorded separately under manifest["fingerprints"] for forensics).
+_IDENTITY_KEYS = ("task", "sequence", "iterations", "locked", "num_rows",
+                  "data_digest")
+
+
+class LedgerError(RuntimeError):
+    """A ledger that cannot be trusted (bad manifest CRC, identity
+    mismatch on an explicit resume, unwritable directory)."""
+
+
+def _canonical(obj) -> str:
+    return json.dumps(obj, sort_keys=True, separators=(",", ":"))
+
+
+def _digest(obj) -> str:
+    return hashlib.sha1(_canonical(obj).encode()).hexdigest()
+
+
+def _coerce(value):
+    """Field values must survive a JSON round trip byte-identically (the
+    row CRC is over the re-serialized object) — coerce numpy/torch
+    scalars and tuples to plain Python."""
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return value
+    if isinstance(value, dict):
+        return {str(k): _coerce(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_coerce(v) for v in value]
+    try:
+        return float(value)
+    except (TypeError, ValueError):
+        return str(value)
+
+
+def row_crc(row: dict) -> int:
+    """CRC32 of a row's canonical JSON, excluding the ``crc`` field
+    itself (the writer and the reader must agree on this)."""
+    payload = {k: v for k, v in row.items() if k != "crc"}
+    return zlib.crc32(_canonical(payload).encode()) & 0xFFFFFFFF
+
+
+def build_manifest(*, config: Optional[dict] = None,
+                   mesh_shape: Optional[dict] = None,
+                   extra: Optional[dict] = None) -> dict:
+    """A fresh manifest skeleton: run id + creation stamp + code/env
+    versions + whatever configuration the creator can describe. The run
+    IDENTITY is stamped later by the first ``bind_fingerprint`` call
+    (game/descent.py's machinery — the creator rarely knows the dataset
+    digest up front)."""
+    import platform
+    import sys
+
+    versions = {"python": platform.python_version(),
+                "photon_ml_torch": "dev"}
+    for mod in ("torch", "numpy"):
+        m = sys.modules.get(mod)
+        v = getattr(m, "__version__", None) if m is not None else None
+        if v is not None:
+            versions[mod] = v
+    manifest = {
+        "version": LEDGER_VERSION,
+        "run_id": uuid.uuid4().hex,
+        "created_unix": time.time(),
+        "config": _coerce(config or {}),
+        "mesh_shape": _coerce(mesh_shape or {}),
+        "versions": versions,
+        "fingerprints": {},
+    }
+    if extra:
+        manifest.update(_coerce(extra))
+    return manifest
+
+
+def identity_of(fingerprint: dict) -> str:
+    """The run-identity digest of a descent checkpoint fingerprint —
+    the subset that survives grid/tuning config swaps."""
+    return _digest({k: fingerprint.get(k) for k in _IDENTITY_KEYS})
+
+
+class RunLedger:
+    """One training run's manifest + append-as-produced telemetry.
+
+    Thread-safe for ``record``; the fit's loop is the intended single
+    writer, but RE wave rows and event listeners may land from helper
+    threads. Use :meth:`resume` to open (it creates when absent), bind
+    run identity via :meth:`bind_fingerprint`, and ``close()`` in a
+    ``finally`` — a crashed run's ledger is still a valid prefix.
+    """
+
+    def __init__(self, directory: str, manifest: dict, *,
+                 seq: int = 0, t_base: float = 0.0, fh=None,
+                 flush_rows: int = 1):
+        self.directory = directory
+        self.manifest = manifest
+        self._seq = seq
+        self._t_base = t_base
+        self._anchor = time.perf_counter()
+        self._fh = fh
+        self._lock = threading.Lock()
+        self._ctx: dict = {}
+        self._buf: list[str] = []
+        # Rows buffered before an fsync-free append. 1 = append-as-
+        # produced (the per-iteration default: one line per seconds-long
+        # optimizer iteration); raise it for high-rate producers.
+        self.flush_rows = max(1, int(flush_rows))
+        self.closed = False
+
+    # -- construction --------------------------------------------------------
+
+    @classmethod
+    def create(cls, directory: str, manifest: Optional[dict] = None,
+               **manifest_kwargs) -> "RunLedger":
+        """Start a FRESH ledger (truncates any previous telemetry)."""
+        os.makedirs(directory, exist_ok=True)
+        manifest = manifest or build_manifest(**manifest_kwargs)
+        led = cls(directory, manifest,
+                  fh=open(os.path.join(directory, _TELEMETRY),
+                          "w"))
+        led._commit_manifest()
+        return led
+
+    @classmethod
+    def resume(cls, directory: str, manifest: Optional[dict] = None,
+               **manifest_kwargs) -> "RunLedger":
+        """Open for append — create when absent. A torn final line (the
+        SIGKILL shape) is truncated away so appended rows continue the
+        clean prefix with contiguous ``seq``. Identity validation
+        happens at the first :meth:`bind_fingerprint`."""
+        existing = read_manifest(directory)
+        if existing is None:
+            return cls.create(directory, manifest, **manifest_kwargs)
+        path = os.path.join(directory, _TELEMETRY)
+        rows, problems, clean_bytes = _scan_rows(path)
+        if problems:
+            logger.warning(
+                "ledger %s telemetry has a torn/corrupt tail (%s) — "
+                "truncating to the clean %d-row prefix", directory,
+                "; ".join(problems), len(rows))
+            with open(path, "r+b") as f:
+                f.truncate(clean_bytes)
+        last = rows[-1] if rows else None
+        fh = open(path, "a")
+        led = cls(directory, existing,
+                  seq=(int(last["seq"]) + 1) if last else 0,
+                  t_base=float(last["t"]) if last else 0.0,
+                  fh=fh)
+        return led
+
+    def _commit_manifest(self) -> None:
+        """Atomic manifest + CRC-carrying ``.ok`` marker written LAST
+        (the v3 commit discipline — utils/diskio.py)."""
+        from photon_ml_torch.utils.diskio import atomic_write
+
+        path = os.path.join(self.directory, _MANIFEST)
+        body = json.dumps(self.manifest, indent=2, sort_keys=True)
+        atomic_write(path, lambda f: f.write(body.encode()))
+        crc = zlib.crc32(body.encode()) & 0xFFFFFFFF
+        atomic_write(os.path.join(self.directory, _MANIFEST_OK),
+                     lambda f: f.write(json.dumps({"crc": crc}).encode()))
+
+    # -- identity ------------------------------------------------------------
+
+    def bind_fingerprint(self, fingerprint: dict,
+                         key: Optional[str] = None) -> None:
+        """Stamp (or validate) run identity from a descent checkpoint
+        fingerprint. First bind stamps the manifest; a later bind — or a
+        resumed ledger — must agree on the identity subset (task,
+        sequence, dataset digest …) or the ledger RESETS loudly to a
+        fresh run (mirroring CheckpointManager's fingerprint-mismatch
+        discard: appending a different run's curve would be silently
+        wrong data). The FULL per-config digest is recorded under
+        ``fingerprints[key]`` for forensics, not validated — grid points
+        and tuning trials are one run."""
+        ident = identity_of(fingerprint)
+        if key is None:
+            key = f"grid-{self._ctx.get('grid', 0)}"
+        with self._lock:
+            have = self.manifest.get("identity")
+            if have is not None and have != ident:
+                logger.warning(
+                    "ledger %s was written by a different run "
+                    "(identity %s != %s) — starting a fresh ledger "
+                    "(the old curve is discarded, like a fingerprint-"
+                    "mismatched checkpoint)", self.directory, have[:12],
+                    ident[:12])
+                self._reset_locked()
+            changed = False
+            if self.manifest.get("identity") != ident:
+                self.manifest["identity"] = ident
+                changed = True
+            fps = self.manifest.setdefault("fingerprints", {})
+            if fps.get(key) != _digest(fingerprint):
+                fps[key] = _digest(fingerprint)
+                changed = True
+            if changed:
+                self._commit_manifest()
+
+    def _reset_locked(self) -> None:
+        self._flush_locked()
+        self._fh.close()
+        self.manifest["run_id"] = uuid.uuid4().hex
+        self.manifest["created_unix"] = time.time()
+        self.manifest.pop("identity", None)
+        self.manifest["fingerprints"] = {}
+        self._fh = open(os.path.join(self.directory, _TELEMETRY), "w")
+        self._seq = 0
+        self._t_base = 0.0
+        self._anchor = time.perf_counter()
+
+    # -- writing -------------------------------------------------------------
+
+    @contextlib.contextmanager
+    def bound(self, **context):
+        """Merge ``context`` into every row recorded inside the scope
+        (the descent loop binds coordinate/outer_iteration/step; the
+        estimator binds the grid point; tuning binds the trial)."""
+        with self._lock:
+            saved = {k: self._ctx.get(k, _MISSING) for k in context}
+            self._ctx.update(context)
+        try:
+            yield self
+        finally:
+            with self._lock:
+                for k, v in saved.items():
+                    if v is _MISSING:
+                        self._ctx.pop(k, None)
+                    else:
+                        self._ctx[k] = v
+
+    def record(self, kind: str, **fields) -> None:
+        """Append one telemetry row (buffered; see ``flush_rows``).
+        THE write API for optimizer/descent loops."""
+        with self._lock:
+            if self.closed:
+                return
+            row = dict(self._ctx)
+            row.update({k: _coerce(v) for k, v in fields.items()})
+            row["seq"] = self._seq
+            row["t"] = round(
+                self._t_base + time.perf_counter() - self._anchor, 6)
+            row["kind"] = kind
+            row["crc"] = row_crc(row)
+            self._seq += 1
+            self._buf.append(_canonical(row))
+            if len(self._buf) >= self.flush_rows:
+                self._flush_locked()
+
+    def _flush_locked(self) -> None:
+        if self._buf and self._fh is not None:
+            self._fh.write("\n".join(self._buf) + "\n")
+            self._fh.flush()
+            self._buf.clear()
+
+    def flush(self) -> None:
+        with self._lock:
+            self._flush_locked()
+
+    def close(self, status: str = "ok") -> None:
+        """Flush and close; records a ``run_end`` marker so ``tail`` can
+        tell a finished run from a killed one. Safe to call twice."""
+        with self._lock:
+            if self.closed:
+                return
+            # Inline run_end (record() would deadlock on the held lock).
+            row = dict(self._ctx)
+            row.update({"seq": self._seq, "kind": "run_end",
+                        "status": status,
+                        "t": round(self._t_base + time.perf_counter()
+                                   - self._anchor, 6)})
+            row["crc"] = row_crc(row)
+            self._seq += 1
+            self._buf.append(_canonical(row))
+            self._flush_locked()
+            self._fh.close()
+            self.closed = True
+
+    @property
+    def telemetry_path(self) -> str:
+        return os.path.join(self.directory, _TELEMETRY)
+
+
+_MISSING = object()
+
+
+def transfer_totals() -> dict:
+    """Cumulative transfer counters from the active cli/obs.py registry
+    (empty when metrics are off) — the opt_iter rows' provenance-shared
+    transfer columns."""
+    from photon_ml_torch import obs
+
+    mx = obs.metrics()
+    if mx is None:
+        return {}
+    out = {}
+    snap = mx.snapshot()
+    for name, col in (("photon_transfer_bytes_total", "transfer_bytes"),
+                      ("photon_transfer_seconds_total",
+                       "transfer_seconds")):
+        total = None
+        for k, v in snap.items():
+            if k == name or k.startswith(name + "{"):
+                total = (total or 0.0) + v
+        if total is not None:
+            out[col] = total
+    return out
+
+
+def fabric_totals() -> dict:
+    """Cumulative cross-host fabric counters from the active registry
+    (empty when metrics are off, or when no fabric ever fired) — the
+    ``fabric_digest`` rows' provenance columns: how many cross-host
+    rounds, retries, and bytes stand behind the digest being attested.
+    Nothing in the port feeds these counters until the fabric (slice 9)
+    is ported, so this reads empty."""
+    from photon_ml_torch import obs
+
+    mx = obs.metrics()
+    if mx is None:
+        return {}
+    out = {}
+    snap = mx.snapshot()
+    for name, col in (("photon_fabric_allreduce_total",
+                       "fabric_allreduces"),
+                      ("photon_fabric_retries_total", "fabric_retries"),
+                      ("photon_fabric_bytes_total", "fabric_bytes")):
+        total = None
+        for k, v in snap.items():
+            if k == name or k.startswith(name + "{"):
+                total = (total or 0.0) + v
+        if total is not None:
+            out[col] = total
+    return out
+
+
+def spill_history(led: "RunLedger", values, grad_norms,
+                  opt: str = "compiled") -> int:
+    """Spill a compiled optimizer's NaN-padded value/grad-norm histories
+    as post-fit ``opt_iter`` rows (``clock: "post_fit"`` — row ``t`` is
+    the spill time, so wall resolution is the coordinate update).
+    Returns the number of rows written."""
+    n = 0
+    for i, (v, g) in enumerate(zip(values, grad_norms)):
+        v, g = float(v), float(g)
+        if v != v:  # NaN padding past the executed iterations
+            continue
+        led.record("opt_iter", opt=opt, clock="post_fit", iteration=i,
+                   value=v, grad_norm=(None if g != g else g))
+        n += 1
+    return n
+
+
+# -- reading ----------------------------------------------------------------
+
+
+def read_manifest(directory: str) -> Optional[dict]:
+    """The committed manifest, or None when absent. Raises LedgerError
+    on a CRC mismatch (a half-written or bit-rotted manifest must not
+    silently pass for the run's identity)."""
+    path = os.path.join(directory, _MANIFEST)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        body = f.read()
+    ok_path = os.path.join(directory, _MANIFEST_OK)
+    if os.path.exists(ok_path):
+        try:
+            with open(ok_path) as f:
+                want = int(json.load(f)["crc"])
+        except (ValueError, KeyError, OSError) as e:
+            raise LedgerError(
+                f"ledger marker {ok_path} is unreadable "
+                f"({type(e).__name__}: {e})")
+        got = zlib.crc32(body.encode()) & 0xFFFFFFFF
+        if got != want:
+            raise LedgerError(
+                f"ledger manifest {path} fails its committed CRC "
+                f"(got {got}, marker {want}) — the manifest cannot be "
+                f"trusted")
+    try:
+        return json.loads(body)
+    except ValueError as e:
+        raise LedgerError(f"ledger manifest {path} is not JSON: {e}")
+
+
+def _scan_rows(path: str) -> tuple[list[dict], list[str], int]:
+    """(clean-prefix rows, problems, byte length of the clean prefix).
+    Stops at the first torn/corrupt/out-of-order line — everything
+    before it is the trustworthy curve."""
+    rows: list[dict] = []
+    problems: list[str] = []
+    clean = 0
+    if not os.path.exists(path):
+        return rows, ["telemetry.jsonl missing"], 0
+    with open(path, "rb") as f:
+        data = f.read()
+    pos = 0
+    while pos < len(data):
+        nl = data.find(b"\n", pos)
+        if nl == -1:
+            # No trailing newline: a torn final line (SIGKILL mid-write).
+            problems.append(f"torn final line at byte {pos}")
+            break
+        raw = data[pos:nl]
+        pos = nl + 1
+        if not raw.strip():
+            clean = pos
+            continue
+        try:
+            row = json.loads(raw.decode())
+        except (ValueError, UnicodeDecodeError):
+            problems.append(f"unparseable row after seq "
+                            f"{rows[-1]['seq'] if rows else 'start'}")
+            break
+        if not isinstance(row, dict) or row.get("crc") != row_crc(row):
+            problems.append(f"row CRC mismatch at seq "
+                            f"{row.get('seq') if isinstance(row, dict) else '?'}")
+            break
+        if int(row.get("seq", -1)) != len(rows):
+            problems.append(
+                f"non-contiguous seq {row.get('seq')} (expected "
+                f"{len(rows)})")
+            break
+        if rows and float(row["t"]) < float(rows[-1]["t"]) - 1e-9:
+            problems.append(f"non-monotone t at seq {row['seq']}")
+            break
+        rows.append(row)
+        clean = pos
+    return rows, problems, clean
+
+
+def read_rows(directory: str) -> tuple[list[dict], list[str]]:
+    """The clean-prefix telemetry rows of a ledger directory, plus any
+    problems found past the prefix (a killed run reports its torn tail
+    here while the curve stays usable)."""
+    rows, problems, _ = _scan_rows(os.path.join(directory, _TELEMETRY))
+    return rows, problems
+
+
+def verify_ledger(directory: str) -> list[str]:
+    """Structural health check (``cli/obs.py verify`` on a ledger dir):
+    manifest present + CRC-committed, rows contiguous/monotone/CRC-clean
+    to the end of the file. Empty list = healthy."""
+    problems: list[str] = []
+    try:
+        manifest = read_manifest(directory)
+    except LedgerError as e:
+        return [str(e)]
+    if manifest is None:
+        return [f"no manifest.json under {directory}"]
+    if not os.path.exists(os.path.join(directory, _MANIFEST_OK)):
+        problems.append("manifest.ok CRC marker missing")
+    rows, row_problems = read_rows(directory)
+    problems.extend(row_problems)
+    if not rows:
+        problems.append("no telemetry rows")
+    return problems
+
+
+# -- curves / diffing --------------------------------------------------------
+
+
+def convergence_curves(rows: list[dict]) -> dict:
+    """Per-coordinate convergence curves from ``opt_iter`` rows:
+    coordinate → list of {t, iteration, value, grad_norm, gap, passes}
+    with ``passes`` the running streamed-pass total (value + gradient +
+    dual passes; compiled spills count one pass per iteration) and
+    ``gap`` the duality-gap certificate of the stochastic solvers
+    (None on L-BFGS/TRON rows, which never emit one)."""
+    curves: dict = {}
+    passes_cum: dict = {}
+    for row in rows:
+        if row.get("kind") != "opt_iter" or row.get("value") is None:
+            continue
+        coord = row.get("coordinate") or "(run)"
+        inc = float(row.get("value_passes") or 0) + \
+            float(row.get("grad_passes") or 0) + \
+            float(row.get("dual_passes") or 0)
+        p = passes_cum.get(coord, 0.0) + (inc if inc > 0 else 1.0)
+        passes_cum[coord] = p
+        curves.setdefault(coord, []).append({
+            "t": float(row["t"]),
+            "iteration": int(row.get("iteration") or 0),
+            "value": float(row["value"]),
+            "grad_norm": (None if row.get("grad_norm") is None
+                          else float(row["grad_norm"])),
+            "gap": (None if row.get("gap") is None
+                    else float(row["gap"])),
+            "passes": p,
+        })
+    return curves
+
+
+def time_to_target(curve: list[dict], target: float) -> Optional[dict]:
+    """First point of ``curve`` whose value reached ``target`` (values
+    are minimized). None when the run never got there. ``seconds`` is
+    measured FROM THE CURVE START (so resumed ledgers and multi-phase
+    scripts compare fairly); ``t`` is the raw ledger timestamp."""
+    if not curve:
+        return None
+    t0 = curve[0]["t"]
+    for pt in curve:
+        if pt["value"] <= target:
+            return {"seconds": round(pt["t"] - t0, 6), "t": pt["t"],
+                    "passes": pt["passes"],
+                    "iteration": pt["iteration"], "value": pt["value"]}
+    return None
+
+
+def time_to_fraction(curve: list[dict],
+                     fraction: float = 0.99) -> Optional[dict]:
+    """Time to achieve ``fraction`` of the run's own total objective
+    drop — a self-contained ``time_to_target_value_seconds``
+    definition (target = f_final + (1-fraction)·(f0 - f_final))."""
+    if len(curve) < 2:
+        return None
+    f0, f_final = curve[0]["value"], curve[-1]["value"]
+    if not f0 > f_final:
+        return None
+    target = f_final + (1.0 - fraction) * (f0 - f_final)
+    out = time_to_target(curve, target)
+    if out is not None:
+        out["target_value"] = target
+    return out
+
+
+def _flatten(obj, prefix="") -> dict:
+    out = {}
+    if isinstance(obj, dict):
+        for k in sorted(obj):
+            out.update(_flatten(obj[k], f"{prefix}{k}."))
+    else:
+        out[prefix[:-1]] = obj
+    return out
+
+
+def config_delta(manifest_a: dict, manifest_b: dict) -> list[dict]:
+    """Flattened key-by-key differences of the two manifests' config +
+    identity-adjacent fields (run_id/created/versions excluded — two
+    runs of the same config should diff empty)."""
+    skip = {"run_id", "created_unix", "fingerprints"}
+    fa = _flatten({k: v for k, v in manifest_a.items() if k not in skip})
+    fb = _flatten({k: v for k, v in manifest_b.items() if k not in skip})
+    out = []
+    for key in sorted(set(fa) | set(fb)):
+        va, vb = fa.get(key), fb.get(key)
+        if va != vb:
+            out.append({"key": key, "a": va, "b": vb})
+    return out
+
+
+def final_validation_metrics(rows: list[dict]) -> dict:
+    """Last observed validation metrics per coordinate (from
+    ``coordinate_update`` rows)."""
+    out: dict = {}
+    for row in rows:
+        if row.get("kind") == "coordinate_update" and row.get("validation"):
+            out[row.get("coordinate") or "(run)"] = row["validation"]
+    return out
+
+
+def fit_wave_summary(rows: list[dict]) -> dict:
+    """Per-(coordinate, outer iteration) aggregation of ``re_fit_wave``
+    rows: lane counts fit/skipped, wave seconds, and the max drift_p99
+    the gate saw. The ``cli/obs.py diff`` entities_fit overlay's data —
+    recorded by every random-effect train call, gated or not."""
+    agg: dict = {}
+    for row in rows:
+        if row.get("kind") != "re_fit_wave":
+            continue
+        coord = row.get("coordinate") or row.get("re_type") or "(run)"
+        it = int(row.get("outer_iteration") or 0)
+        e = agg.setdefault(coord, {}).setdefault(
+            it, {"outer_iteration": it, "entities_fit": 0,
+                 "entities_skipped": 0, "seconds": 0.0, "waves": 0,
+                 "drift_p99": 0.0})
+        e["entities_fit"] += int(row.get("entities_fit") or 0)
+        e["entities_skipped"] += int(row.get("entities_skipped") or 0)
+        e["seconds"] = round(e["seconds"] + float(row.get("seconds") or 0.0),
+                             6)
+        e["waves"] += 1
+        e["drift_p99"] = max(e["drift_p99"],
+                             float(row.get("drift_p99") or 0.0))
+    return {coord: [per_it[k] for k in sorted(per_it)]
+            for coord, per_it in agg.items()}
+
+
+def diff_ledgers(dir_a: str, dir_b: str,
+                 fraction: float = 0.99) -> dict:
+    """Compare two run ledgers: config delta, per-coordinate
+    time-to-target (target = the WORSE of the two final values, so both
+    runs reached it), value-vs-wall / value-vs-passes curve overlays,
+    and final value/metric deltas. The ``cli/obs.py diff`` engine."""
+    out: dict = {"a": dir_a, "b": dir_b}
+    man_a, man_b = read_manifest(dir_a), read_manifest(dir_b)
+    if man_a is None or man_b is None:
+        raise LedgerError("both diff arguments must be ledger "
+                          "directories with a committed manifest")
+    rows_a, prob_a = read_rows(dir_a)
+    rows_b, prob_b = read_rows(dir_b)
+    out["problems"] = {"a": prob_a, "b": prob_b}
+    out["run_ids"] = {"a": man_a.get("run_id"), "b": man_b.get("run_id")}
+    out["config_delta"] = config_delta(man_a, man_b)
+    def _rebased(curves: dict) -> dict:
+        # Each curve on its own "seconds into the fit" axis: absolute
+        # ledger time bakes in staging/compile offsets that differ run
+        # to run and would skew the overlay and any x-axis comparison.
+        return {coord: [dict(p, t=round(p["t"] - pts[0]["t"], 6))
+                        for p in pts]
+                for coord, pts in curves.items() if pts}
+
+    curves_a = _rebased(convergence_curves(rows_a))
+    curves_b = _rebased(convergence_curves(rows_b))
+    coords: dict = {}
+    for coord in sorted(set(curves_a) | set(curves_b)):
+        ca, cb = curves_a.get(coord), curves_b.get(coord)
+        entry: dict = {}
+        if ca:
+            entry["final_value_a"] = ca[-1]["value"]
+        if cb:
+            entry["final_value_b"] = cb[-1]["value"]
+        if ca and cb:
+            entry["final_value_delta"] = \
+                entry["final_value_b"] - entry["final_value_a"]
+            # The worse final value: the common target both runs reached.
+            target = max(ca[-1]["value"], cb[-1]["value"])
+            tta = time_to_target(ca, target)
+            ttb = time_to_target(cb, target)
+            entry["target_value"] = target
+            entry["time_to_target_a"] = tta
+            entry["time_to_target_b"] = ttb
+            if tta and ttb and tta["seconds"] > 0:
+                entry["time_to_target_ratio"] = \
+                    ttb["seconds"] / max(tta["seconds"], 1e-9)
+            entry["self_time_to_target_a"] = time_to_fraction(ca, fraction)
+            entry["self_time_to_target_b"] = time_to_fraction(cb, fraction)
+            entry["curve_a"] = ca
+            entry["curve_b"] = cb
+        coords[coord] = entry
+    waves_a = fit_wave_summary(rows_a)
+    waves_b = fit_wave_summary(rows_b)
+    for coord in sorted(set(waves_a) | set(waves_b)):
+        entry = coords.setdefault(coord, {})
+        if coord in waves_a:
+            entry["fit_waves_a"] = waves_a[coord]
+        if coord in waves_b:
+            entry["fit_waves_b"] = waves_b[coord]
+    out["coordinates"] = coords
+    out["final_metrics"] = {"a": final_validation_metrics(rows_a),
+                            "b": final_validation_metrics(rows_b)}
+    return out

@@ -50,8 +50,24 @@ after the compute stream has passed an event recorded behind its last
 reader. ``bytes_moved`` and ``chunks_moved`` count what the stream
 delivered.
 
+**Observability.** With a tracer or a metrics registry active
+(``photon_ml_torch.obs``), every pass is a ``stream.pass`` span and every
+streamed chunk a ``stream.chunk_transfer`` span (cat ``transfer``) with
+``photon_transfer_{bytes,seconds,chunks}_total{kind="stream",dtype=}``
+and the ``photon_stream_inflight_chunks`` gauge; off, each site is one
+``None`` check. The bytes and chunks counted equal ``bytes_moved`` and
+``chunks_moved``. On the CPU a chunk is read in place and its span times
+that read on the host. On a card the copy is asynchronous, so the host
+sees only its enqueue: the copy is timed instead by a pair of CUDA
+events around it on the copy stream (and each pass by a pair on the
+compute stream), read only once the events have completed — at the next
+pass, whose caller has read the previous pass's value by then, or at
+:meth:`ChunkStream.flush_timings` — and recorded then as a closed span
+(``Tracer.record_complete``, ``clock="device"``) at the host time of the
+enqueue. Reading them never waits on the card.
+
 Not ported here: the sharded stream and mesh helpers (slice 9), fault
-sites, metric counters and spans (slices 6 and 10), the compile-cache
+sites and the transfer retry ladder (slices 9–10), the compile-cache
 counters (a torch program has no compile cache to count).
 """
 
@@ -63,11 +79,13 @@ import dataclasses
 import json
 import logging
 import os
+import time
 from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
+from photon_ml_torch import obs
 from photon_ml_torch.device import DeviceLike, resolve_device
 from photon_ml_torch.ops.kernels import ell_scatter, stream_fused
 from photon_ml_torch.ops.kernels.ell_scatter import ColumnLayout
@@ -526,9 +544,10 @@ def pin_host_memory(chunked: ChunkedHybrid) -> ChunkedHybrid:
 class ChunkStream:
     """One device's feed of a chunked batch, pass after pass.
 
-    Iterating yields ``(i, chunk)`` for every chunk in order: the
-    ``pinned`` leading chunks as they are (already on the device), then
-    the rest streamed. On the CPU the host chunks are read in place. On a
+    ``chunks()`` yields ``(i, chunk)`` for every chunk of one pass in
+    order: the ``pinned`` leading chunks as they are (already on the
+    device), then the rest streamed. On the CPU the host chunks are read
+    in place. On a
     card each streamed chunk is copied ``non_blocking`` on a copy stream
     into one of ``prefetch_depth`` device buffers, and the compute
     stream waits on the copy's event before the chunk is handed out (a
@@ -568,23 +587,79 @@ class ChunkStream:
         # previous one still reads.
         self._released: list = [None] * prefetch_depth
         self._copy_stream = None
+        # Device-timed copies and passes whose events may still be
+        # pending (see flush_timings).
+        self._timed_copies: collections.deque = collections.deque()
+        self._timed_passes: collections.deque = collections.deque()
 
-    def __iter__(self):
+    def chunks(self, pass_span=None):
+        """Yield ``(i, chunk)`` for one pass. ``pass_span`` is the pass's
+        open span (None when tracing is off): on a card it receives the
+        pass's device seconds once they can be read."""
+        mx, tr = obs.metrics(), obs.tracer()
+        if mx is not None or tr is not None:
+            self.flush_timings()
         yield from enumerate(self.pinned)
         todo = range(len(self.pinned), self.chunked.num_chunks)
         if self.device.type == "cpu":
             for i in todo:
                 ch = self.chunked.chunks[i]
-                self._count(ch)
-                yield i, ch
+                if mx is None and tr is None:
+                    self._count(ch)
+                    yield i, ch
+                    continue
+                self._accounted_read(ch, i, mx, tr)
+                try:
+                    yield i, ch
+                finally:
+                    if mx is not None:
+                        mx.gauge("photon_stream_inflight_chunks").dec()
             return
-        yield from self._stream_cuda(todo)
+        yield from self._stream_cuda(todo, mx, tr, pass_span)
 
     def _count(self, ch: CanonicalChunk) -> None:
         self.bytes_moved += _chunk_nbytes(ch)
         self.chunks_moved += 1
 
-    def _stream_cuda(self, todo):
+    def _accounted_read(self, ch: CanonicalChunk, i: int, mx, tr) -> None:
+        """The CPU's in-place read of one chunk, traced and metered: the
+        counterpart of the reference's accounted ``device_put``."""
+        nbytes, dtype = _chunk_nbytes(ch), chunk_dtype(ch)
+        t0 = time.perf_counter()
+        if tr is not None:
+            with tr.span("stream.chunk_transfer", cat="transfer", index=i,
+                         bytes=nbytes, dtype=dtype):
+                self._count(ch)
+        else:
+            self._count(ch)
+        if mx is not None:
+            _count_transfer(mx, nbytes, dtype)
+            mx.counter("photon_transfer_seconds_total", kind="stream",
+                       dtype=dtype).inc(time.perf_counter() - t0)
+
+    def flush_timings(self) -> None:
+        """Record every device-timed copy and pass whose CUDA events have
+        completed, oldest first; stop at the first pending one. It never
+        waits: an event still pending stays for the next call (each pass
+        calls this first, after its caller has read the previous pass's
+        value)."""
+        while self._timed_copies and self._timed_copies[0][-1].query():
+            (mx, tr, i, nbytes, dtype, e0, parent, start,
+             end) = self._timed_copies.popleft()
+            seconds = start.elapsed_time(end) / 1e3
+            if mx is not None:
+                mx.counter("photon_transfer_seconds_total", kind="stream",
+                           dtype=dtype).inc(seconds)
+            if tr is not None:
+                tr.record_complete(
+                    "stream.chunk_transfer", cat="transfer", t0_epoch_ns=e0,
+                    dur_s=seconds, parent=parent, index=i, bytes=nbytes,
+                    dtype=dtype, clock="device")
+        while self._timed_passes and self._timed_passes[0][-1].query():
+            span, start, end = self._timed_passes.popleft()
+            span.set(device_seconds=start.elapsed_time(end) / 1e3)
+
+    def _stream_cuda(self, todo, mx=None, tr=None, pass_span=None):
         depth = self.prefetch_depth
         compute = torch.cuda.current_stream(self.device)
         if self._copy_stream is None:
@@ -597,6 +672,11 @@ class ChunkStream:
         released = self._released
         pending: collections.deque = collections.deque()
         order = iter(todo)
+        timed = mx is not None or tr is not None
+        pass_start = None
+        if pass_span is not None:
+            pass_start = torch.cuda.Event(enable_timing=True)
+            pass_start.record(compute)
 
         def issue(k: int, i: int):
             b = k % depth
@@ -604,12 +684,23 @@ class ChunkStream:
             with torch.cuda.stream(copy):
                 if released[b] is not None:
                     copy.wait_event(released[b])
+                if timed:
+                    e0 = time.time_ns()
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record(copy)
                 buf = self._buffers[b]
                 for name, t in host.tensors().items():
                     buf[name].copy_(t, non_blocking=True)
-                ready = torch.cuda.Event()
+                ready = torch.cuda.Event(enable_timing=timed)
                 ready.record(copy)
             self._count(host)
+            if timed:
+                nbytes, dtype = _chunk_nbytes(host), chunk_dtype(host)
+                self._timed_copies.append(
+                    (mx, tr, i, nbytes, dtype, e0,
+                     None if tr is None else tr.current(), start, ready))
+                if mx is not None:
+                    _count_transfer(mx, nbytes, dtype)
             pending.append((i, b, ready))
 
         k = 0
@@ -628,10 +719,27 @@ class ChunkStream:
             released[b] = torch.cuda.Event()
             released[b].record(compute)
             del ch
+            if mx is not None:
+                mx.gauge("photon_stream_inflight_chunks").dec()
             nxt = next(order, None)
             if nxt is not None:
                 issue(k, nxt)
                 k += 1
+        if pass_start is not None:
+            pass_end = torch.cuda.Event(enable_timing=True)
+            pass_end.record(compute)
+            self._timed_passes.append((pass_span, pass_start, pass_end))
+
+
+def _count_transfer(mx, nbytes: int, dtype: str) -> None:
+    """One streamed chunk's bytes, its count and the in-flight gauge (the
+    seconds come from the caller: host time on the CPU, device time on a
+    card)."""
+    mx.counter("photon_transfer_bytes_total", kind="stream",
+               dtype=dtype).inc(nbytes)
+    mx.counter("photon_transfer_chunks_total", kind="stream",
+               dtype=dtype).inc()
+    mx.gauge("photon_stream_inflight_chunks").inc()
 
 
 def _concrete(device: torch.device) -> torch.device:
@@ -675,15 +783,17 @@ def make_value_and_gradient(
     st = stream or ChunkStream(chunked, device, prefetch_depth, pinned)
 
     def value_and_grad(w: Tensor, offsets: Optional[Tensor] = None):
-        w_pad = _padded(w)
-        value = torch.zeros((), dtype=torch.float32, device=st.device)
-        grad = torch.zeros(chunked.dim, dtype=torch.float32,
-                           device=st.device)
-        for i, ch in st:
-            v, g = _chunk_value_grad(loss, ch, w_pad,
-                                     _offsets_for(chunked, offsets, i, ch))
-            value = value + v
-            grad = grad + g
+        with obs.span("stream.pass", cat="stream", kind="value_grad",
+                      chunks=chunked.num_chunks) as sp:
+            w_pad = _padded(w)
+            value = torch.zeros((), dtype=torch.float32, device=st.device)
+            grad = torch.zeros(chunked.dim, dtype=torch.float32,
+                               device=st.device)
+            for i, ch in st.chunks(sp):
+                v, g = _chunk_value_grad(
+                    loss, ch, w_pad, _offsets_for(chunked, offsets, i, ch))
+                value = value + v
+                grad = grad + g
         st.passes["value_grad"] += 1
         return value, grad
 
@@ -704,11 +814,13 @@ def make_value_only(
     st = stream or ChunkStream(chunked, device, prefetch_depth, pinned)
 
     def value_only(w: Tensor, offsets: Optional[Tensor] = None):
-        w_pad = _padded(w)
-        value = torch.zeros((), dtype=torch.float32, device=st.device)
-        for i, ch in st:
-            value = value + _chunk_value(
-                loss, ch, w_pad, _offsets_for(chunked, offsets, i, ch))
+        with obs.span("stream.pass", cat="stream", kind="value_only",
+                      chunks=chunked.num_chunks) as sp:
+            w_pad = _padded(w)
+            value = torch.zeros((), dtype=torch.float32, device=st.device)
+            for i, ch in st.chunks(sp):
+                value = value + _chunk_value(
+                    loss, ch, w_pad, _offsets_for(chunked, offsets, i, ch))
         st.passes["value"] += 1
         return value
 
@@ -727,10 +839,12 @@ def margins_chunked(
 ) -> Tensor:
     """(num_rows,) margins (wᵀx + offset), streamed; pad rows dropped."""
     st = stream or ChunkStream(chunked, device, prefetch_depth, pinned)
-    w_pad = _padded(w)
-    parts = [_chunk_margins_of(ch, w_pad,
-                               _offsets_for(chunked, offsets, i, ch))
-             for i, ch in st]
+    with obs.span("stream.pass", cat="stream", kind="margins",
+                  chunks=chunked.num_chunks) as sp:
+        w_pad = _padded(w)
+        parts = [_chunk_margins_of(ch, w_pad,
+                                   _offsets_for(chunked, offsets, i, ch))
+                 for i, ch in st.chunks(sp)]
     st.passes["margins"] += 1
     return torch.cat(parts)[:chunked.num_rows]
 

@@ -26,17 +26,26 @@ stay the smooth part; the L1 term is added on the host at the probe.
 Host reads are where the reference has them: one scalar per probe and a
 few per iteration. Unlike the lane-batched solvers of ``optim/lbfgs.py``,
 this one solves one problem: ``OptResult``'s fields carry no lane axis.
-The run ledger, convergence watchdogs, fault poisoning and the fabric's
-``on_accept`` hook are not ported (slice 6 and the fabric).
+
+Telemetry (docs/OBSERVABILITY.md): the ``lbfgs.initial_pass``,
+``lbfgs.iteration`` and ``lbfgs.probe`` spans, a live ``opt_iter`` ledger
+row per accepted iteration and the convergence watchdog, each one
+``None`` check when off. They read only the values the loop already
+holds on the host. Fault poisoning and the fabric's ``on_accept`` hook
+are not ported (slices 9–10).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from photon_ml_torch import obs
+from photon_ml_torch.obs.ledger import transfer_totals
+from photon_ml_torch.obs.watchdog import ConvergenceWatchdog
 from photon_ml_torch.optim.common import OptResult, OptimizerConfig
 from photon_ml_torch.optim.lbfgs import _project_orthant, _pseudo_gradient
 
@@ -117,13 +126,25 @@ def minimize_streaming(
     the NEXT iteration with bit-identical state (no initial pass: the
     snapshot carries it). ``l1_weights`` switches the loop to OWL-QN; the
     callables must then be the SMOOTH part only.
+
+    When a run ledger is active (``obs.ledger()``), every accepted
+    iteration records an ``opt_iter`` row LIVE — value, gradient norm,
+    step, probe/pass counts, per-iteration wall seconds, cumulative
+    transfer counters. When a watchdog config is installed
+    (``obs.watchdog_config()``), the same per-iteration stream feeds a
+    :class:`ConvergenceWatchdog`: NaN/stall/divergence/slow-iteration
+    become a loud event plus a defined error or early stop.
     """
     d = int(w0.shape[0])
     dev = w0.device
     M = config.history_length
     max_it = config.max_iterations
+    led = obs.ledger()
+    wd_cfg = obs.watchdog_config()
+    wd = (ConvergenceWatchdog(wd_cfg) if wd_cfg is not None else None)
     l1 = (None if l1_weights is None
           else torch.as_tensor(l1_weights, dtype=torch.float32, device=dev))
+    opt_name = "lbfgs-stream" if l1 is None else "owlqn-stream"
 
     def _sgrad(w, g):
         """Gradient driving direction + convergence (pg under L1)."""
@@ -138,6 +159,7 @@ def minimize_streaming(
         return torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                device=dev)
 
+    v_passes = g_passes = 0  # streamed passes, cumulative this call
     if resume_state is not None:
         st = resume_state
         if st["s_stack"].shape != (M, d) or st["w"].shape != (d,):
@@ -162,7 +184,9 @@ def minimize_streaming(
             f"(f={fv:.6g})")
     else:
         w = w0.to(device=dev, dtype=torch.float32)
-        f, g = value_and_grad(w)
+        with obs.span("lbfgs.initial_pass", cat="optim"):
+            f, g = value_and_grad(w)
+        g_passes += 1
         sg = _sgrad(w, g)
         f0 = float(f) + _l1_term(w)
         gn0 = float(torch.linalg.vector_norm(sg))
@@ -178,77 +202,111 @@ def minimize_streaming(
     converged = False
     it = start_it - 1
     for it in range(start_it, max_it + 1):
-        direction = _two_loop(sg, s_stack, y_stack, rho, m_host)
-        # One scalar read per iteration: the direction-validity guard.
-        dg = float(torch.dot(direction, sg))
-        if not np.isfinite(dg) or dg >= 0.0:
-            direction, dg = -sg, -float(torch.dot(sg, sg))
-        # First iteration: steepest descent scaled to unit step length
-        # (Breeze's determineStepSize init); later γ-scaling makes 1.0 the
-        # natural trial step.
-        step = 1.0 if m_host > 0 else min(1.0, 1.0 / max(gn_prev, 1e-12))
-        # OWL-QN probes live in the orthant of the CURRENT point (sign(w);
-        # sign(−pg) at zeros), fixed across backtracks.
-        orthant = (None if l1 is None else
-                   torch.where(w != 0.0, torch.sign(w), torch.sign(-sg)))
-        accepted = False
-        for _ in range(config.max_line_search_steps):
-            w_try = w + step * direction
-            if orthant is not None:
-                w_try = _project_orthant(w_try, orthant)
-            # The Armijo probe: the host decides on this value.
-            if value_only is None:
-                f_try, g_try = value_and_grad(w_try)
-                f_try_h = float(f_try)
-            else:
-                f_try_h = float(value_only(w_try))
-            f_try_h += _l1_term(w_try)  # total objective under L1
-            if l1 is None:
-                decrease = step * dg
-            else:
-                # Armijo with the projected displacement (the orthant
-                # projection breaks the step·dg identity).
-                decrease = float(torch.dot(sg, w_try - w))
-            if np.isfinite(f_try_h) and \
-                    f_try_h <= fv + config.wolfe_c1 * decrease:
-                accepted = True
+        t_iter = time.perf_counter()
+        v0_passes, g0_passes = v_passes, g_passes
+        # One span per iteration: its passes, probes and the checkpoint
+        # write nest under it.
+        with obs.span("lbfgs.iteration", cat="optim", it=it):
+            direction = _two_loop(sg, s_stack, y_stack, rho, m_host)
+            # One scalar read per iteration: the direction-validity guard.
+            dg = float(torch.dot(direction, sg))
+            if not np.isfinite(dg) or dg >= 0.0:
+                direction, dg = -sg, -float(torch.dot(sg, sg))
+            # First iteration: steepest descent scaled to unit step length
+            # (Breeze's determineStepSize init); later γ-scaling makes 1.0
+            # the natural trial step.
+            step = 1.0 if m_host > 0 else min(1.0,
+                                              1.0 / max(gn_prev, 1e-12))
+            # OWL-QN probes live in the orthant of the CURRENT point
+            # (sign(w); sign(−pg) at zeros), fixed across backtracks.
+            orthant = (None if l1 is None else
+                       torch.where(w != 0.0, torch.sign(w), torch.sign(-sg)))
+            accepted = False
+            for probe in range(config.max_line_search_steps):
+                w_try = w + step * direction
+                if orthant is not None:
+                    w_try = _project_orthant(w_try, orthant)
+                # The Armijo probe: the host decides on this value.
+                with obs.span("lbfgs.probe", cat="optim", it=it,
+                              probe=probe, step=step):
+                    if value_only is None:
+                        f_try, g_try = value_and_grad(w_try)
+                        g_passes += 1
+                        f_try_h = float(f_try)
+                    else:
+                        v_passes += 1
+                        f_try_h = float(value_only(w_try))
+                f_try_h += _l1_term(w_try)  # total objective under L1
+                if l1 is None:
+                    decrease = step * dg
+                else:
+                    # Armijo with the projected displacement (the orthant
+                    # projection breaks the step·dg identity).
+                    decrease = float(torch.dot(sg, w_try - w))
+                if np.isfinite(f_try_h) and \
+                        f_try_h <= fv + config.wolfe_c1 * decrease:
+                    accepted = True
+                    break
+                step *= 0.5
+            if not accepted:
+                if wd is not None:
+                    # A line search that died on NON-FINITE probes is the
+                    # NaN failure shape (a finite failed search stays the
+                    # optimizer's own stop).
+                    wd.on_line_search_failure(f_try_h, it)
+                log(f"iter {it}: line search failed (f={fv:.6g}); "
+                    f"stopping")
                 break
-            step *= 0.5
-        if not accepted:
-            log(f"iter {it}: line search failed (f={fv:.6g}); stopping")
-            break
-        if value_only is not None:
-            # The gradient pass only on acceptance (the curvature pair and
-            # the next direction need it).
-            _, g_try = value_and_grad(w_try)
-        s = w_try - w
-        y = g_try - g  # RAW smooth gradients (OWL-QN included)
-        sy = float(torch.dot(s, y))
-        if sy > 1e-10:
-            s_stack = _shift_in(s_stack, s, m_host)
-            y_stack = _shift_in(y_stack, y, m_host)
-            rho = _shift_in(rho, torch.full((), 1.0 / sy,
-                                            dtype=torch.float32,
-                                            device=dev), m_host)
-            m_host = min(m_host + 1, M)
-        w, g = w_try, g_try
-        sg = _sgrad(w, g)
-        f_prev, fv = fv, f_try_h
-        gn = float(torch.linalg.vector_norm(sg))
-        vals[it], gns[it] = fv, gn
-        log(f"iter {it}: f={fv:.6g} |g|={gn:.3g} step={step:.3g}")
-        if checkpoint_save is not None:
-            # Iteration boundary = the resume point (gn_prev is the gn
-            # just computed: the value the next iteration would see).
-            checkpoint_save(snapshot_state(
-                w, g, s_stack, y_stack, rho, m_host, it, fv, gn, f0, gn0,
-                vals, gns))
-        if gn <= config.tolerance * max(gn0, 1.0) or \
-                abs(fv - f_prev) <= config.tolerance * max(abs(f_prev),
-                                                           1e-12):
-            converged = True
-            break
-        gn_prev = gn
+            if value_only is not None:
+                # The gradient pass only on acceptance (the curvature pair
+                # and the next direction need it).
+                _, g_try = value_and_grad(w_try)
+                g_passes += 1
+            s = w_try - w
+            y = g_try - g  # RAW smooth gradients (OWL-QN included)
+            sy = float(torch.dot(s, y))
+            if sy > 1e-10:
+                s_stack = _shift_in(s_stack, s, m_host)
+                y_stack = _shift_in(y_stack, y, m_host)
+                rho = _shift_in(rho, torch.full((), 1.0 / sy,
+                                                dtype=torch.float32,
+                                                device=dev), m_host)
+                m_host = min(m_host + 1, M)
+            w, g = w_try, g_try
+            sg = _sgrad(w, g)
+            f_prev, fv = fv, f_try_h
+            gn = float(torch.linalg.vector_norm(sg))
+            vals[it], gns[it] = fv, gn
+            log(f"iter {it}: f={fv:.6g} |g|={gn:.3g} step={step:.3g}")
+            if led is not None:
+                # Append-as-produced: a kill one iteration later still
+                # leaves this point on the curve.
+                led.record("opt_iter", opt=opt_name, iteration=it,
+                           value=fv, grad_norm=gn, step=step,
+                           probes=probe + 1,
+                           value_passes=v_passes - v0_passes,
+                           grad_passes=g_passes - g0_passes,
+                           seconds=round(time.perf_counter() - t_iter, 6),
+                           **transfer_totals())
+            if checkpoint_save is not None:
+                # Iteration boundary = the resume point (gn_prev is the gn
+                # just computed: the value the next iteration would see).
+                checkpoint_save(snapshot_state(
+                    w, g, s_stack, y_stack, rho, m_host, it, fv, gn, f0,
+                    gn0, vals, gns))
+            if wd is not None:
+                # After the checkpoint write: a "raise" verdict still
+                # leaves a resumable snapshot + a flushed ledger row.
+                if wd.observe(it, fv, gn,
+                              time.perf_counter() - t_iter) == "stop":
+                    log(f"iter {it}: watchdog early stop")
+                    break
+            if gn <= config.tolerance * max(gn0, 1.0) or \
+                    abs(fv - f_prev) <= config.tolerance * max(abs(f_prev),
+                                                               1e-12):
+                converged = True
+                break
+            gn_prev = gn
 
     return OptResult(
         w=w,

@@ -1,13 +1,18 @@
 """Micro-batcher: queue scoring requests, flush on size or deadline.
 
-Port of ``photon_ml_tpu/serving/batcher.py`` (without its trace spans).
-A flush happens when ``max_batch`` requests are queued or when the OLDEST
-queued request has waited ``max_wait_ms``: an idle service scores a lone
-request after at most one wait window, and a busy one ships full batches.
+Port of ``photon_ml_tpu/serving/batcher.py``. A flush happens when
+``max_batch`` requests are queued or when the OLDEST queued request has
+waited ``max_wait_ms``: an idle service scores a lone request after at
+most one wait window, and a busy one ships full batches.
 
 Batch SHAPES are the flush function's concern (the service pads each
 flush to a power-of-two bucket); the batcher's concern is time: one
 worker thread, one condition variable, futures for the callers.
+
+Tracing: with a tracer active, each flush is a ``serving.flush`` span
+(the service parents each request's ``serving.request`` span into it)
+and each request records its enqueue wall-clock stamp at submit; off,
+both are one ``None`` check.
 
 Failure contract — a future returned by ``submit`` ALWAYS resolves:
 
@@ -33,6 +38,8 @@ import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
+
+from photon_ml_torch import obs
 
 logger = logging.getLogger("photon_ml_torch.serving")
 
@@ -74,6 +81,10 @@ class _Entry:
     # resolves — whoever holds the future reads it race-free after
     # ``result()``.
     attribution: Optional[dict] = None
+    # Wall-clock enqueue stamp, taken only when tracing is on: anchors
+    # the request's span on the trace's cross-thread time axis
+    # (durations still come off ``enqueued_at``'s monotonic clock).
+    t0_epoch_ns: Optional[int] = None
 
 
 def bucket_batch(n: int, max_batch: int) -> int:
@@ -141,6 +152,8 @@ class MicroBatcher:
         or ``BatcherDied``."""
         entry = _Entry(request)
         entry.request_id = next(_REQUEST_IDS)
+        if obs.tracer() is not None:
+            entry.t0_epoch_ns = time.time_ns()
         ttl = self.default_deadline if deadline_s is None else deadline_s
         if ttl is not None:
             entry.deadline = entry.enqueued_at + float(ttl)
@@ -256,7 +269,10 @@ class MicroBatcher:
             if not batch:
                 continue
             try:
-                scores = self._flush_fn(batch)
+                # One span per device flush; off, one None check a batch.
+                with obs.span("serving.flush", cat="serving",
+                              rows=len(batch)):
+                    scores = self._flush_fn(batch)
                 if len(scores) != len(batch):
                     # A silent zip() over a short result would leave the
                     # tail pending forever; fail loudly instead.

@@ -17,6 +17,12 @@ stream; HTTP handler threads only submit.
 Scoring semantics match the offline ``GameModel.score``: scores are
 offsets + Σ coordinate contributions, unseen entities contribute zero,
 ``as_mean`` applies the task's inverse link.
+
+With a tracer active each request becomes a ``serving.request`` span
+parented into the ``serving.flush`` span that scored it, with one child
+span per stage (queue wait, assemble, device score, respond) that sum to
+it; ``/metrics`` appends the active metrics registry to the service's
+own scoreboard.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from photon_ml_torch import obs
 from photon_ml_torch.data.game_data import GameDataset, SparseShard
 from photon_ml_torch.device import DeviceLike, resolve_device
 from photon_ml_torch.game.models import GameModel
@@ -272,12 +279,19 @@ class ScoringService:
         in the flush experienced the flush's assemble/device/respond
         walls plus its own queue wait, which lasts until the flush's
         assembly starts (the wait for the scoring lock included), so its
-        stages sum to its total."""
+        stages sum to its total.
+
+        With tracing on, each request also becomes a ``serving.request``
+        span (recorded after the fact: it crosses the submit→worker
+        thread boundary) parented into this flush's span, with one child
+        span per stage laid end to end, so the children sum to it."""
         t_a0, t_d0, t_d1 = marks  # same clock as _Entry.enqueued_at
         t_done = time.monotonic()
         assemble_s = t_d0 - t_a0
         device_s = t_d1 - t_d0
         respond_s = t_done - t_d1
+        tr = obs.tracer()
+        traced = []  # (t0_epoch_ns, request_id, queue wait, total)
         for e in entries:
             queue_wait_s = max(t_a0 - e.enqueued_at, 0.0)
             total_s = t_done - e.enqueued_at
@@ -296,6 +310,15 @@ class ScoringService:
             self.metrics.record_request_latency(total_s)
             self.metrics.record_stages(queue_wait_s, assemble_s,
                                        device_s, respond_s)
+            if tr is not None and e.t0_epoch_ns is not None:
+                traced.append((e.t0_epoch_ns, e.request_id, queue_wait_s,
+                               total_s))
+        if traced:
+            # The spans are built at export: this thread scores the next
+            # flush meanwhile.
+            tr.defer(_request_spans, tr, tr.current(),
+                     threading.get_ident(), traced,
+                     (assemble_s, device_s, respond_s))
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -304,8 +327,14 @@ class ScoringService:
         return self.store.version
 
     def metrics_text(self) -> str:
-        """The ``/metrics`` body."""
-        return self.metrics.render_text()
+        """The ``/metrics`` body: serving's own scoreboard plus, when
+        process-wide observability is on, the metrics registry, so one
+        endpoint exposes the whole process."""
+        text = self.metrics.render_text()
+        registry = obs.metrics()
+        if registry is not None:
+            text += registry.render_text()
+        return text
 
     def slo_snapshot(self) -> dict:
         """The ``/slo`` body: sliding-window percentiles + error-budget
@@ -332,6 +361,29 @@ class ScoringService:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _request_spans(tr, flush_span, tid, traced, stages) -> None:
+    """One flush's requests as ``serving.request`` spans, parented into
+    the flush's span, each with its four stage spans laid end to end
+    (they sum to it). Each entry's own (epoch, monotonic) pair anchors
+    its stage boundaries on the cross-thread trace axis."""
+    assemble_s, device_s, respond_s = stages
+    for t0_epoch_ns, request_id, wait_s, total_s in traced:
+        sid = tr.record_complete(
+            "serving.request", cat="serving", t0_epoch_ns=t0_epoch_ns,
+            dur_s=total_s, parent=flush_span, tid=tid, crosses_queue=True,
+            request_id=request_id)
+        offset_s = 0.0
+        for name, dur in (("serving.queue_wait", wait_s),
+                          ("serving.assemble", assemble_s),
+                          ("serving.device_score", device_s),
+                          ("serving.respond", respond_s)):
+            tr.record_complete(name, cat="serving",
+                               t0_epoch_ns=t0_epoch_ns
+                               + int(offset_s * 1e9),
+                               dur_s=dur, parent=sid, tid=tid)
+            offset_s += dur
 
 
 # -- JSON-over-HTTP front end ----------------------------------------------

@@ -7,9 +7,12 @@ dataclass events dispatched synchronously, so a listener is just a
 callable. Listeners must be cheap and non-failing; a raising listener is
 logged and detached rather than killing training.
 
-The events here are the ones the ported paths emit (coordinate descent
-and checkpoint recovery), with the reference's field names; the others
-come with the slices that emit them.
+The events here are the ones the ported paths emit (coordinate descent,
+checkpoint recovery, the streamed fixed effect's chunk staging and the
+convergence watchdogs), with the reference's field names; the others
+come with the slices that emit them. ``obs/bridge.py`` turns each
+``*Start``/``*Finish`` pair into a span and the point events into
+timeline instants and counters.
 """
 
 from __future__ import annotations
@@ -59,6 +62,44 @@ class CheckpointRecovered(Event):
     directory: str
     done_steps: int
     reason: str
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamStageStart(Event):
+    """One streamed fixed-effect chunk-staging pass starting: the
+    coordinate's SparseShard canonicalizes into ``num_chunks``
+    hot-dense/cold-ELL chunks over ``workers`` staging threads
+    (docs/STREAMING.md)."""
+
+    shard_id: str
+    num_rows: int
+    chunk_rows: int
+    num_chunks: int
+    workers: int
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamStageFinish(Event):
+    """The chunk-staging pass ended (finally-guarded pair with
+    StreamStageStart). ``num_chunks`` is 0 when staging raised before
+    the layout was built."""
+
+    shard_id: str
+    num_chunks: int
+    seconds: float
+
+
+@dataclasses.dataclass(frozen=True)
+class WatchdogAlert(Event):
+    """A convergence watchdog fired (obs/watchdog.py): ``kind`` names
+    the detector (nan/stall/divergence/slow_iter/gap), ``action`` what
+    happened (warn/stop/raise). The obs bridge turns these into timeline
+    instants + ``photon_watchdog_alerts_total{kind=...}``."""
+
+    kind: str
+    action: str
+    detail: str
+    coordinate: Optional[str] = None
 
 
 class EventEmitter:
