@@ -26,7 +26,10 @@ code is non-zero:
              direct pass around HTTP (with a profiled repeat) comes after
              they are read.
 5. train   — the training path: config 4 at full width and MovieLens-20M's
-             20,000,263 rows from a seed (5% held out), the three
+             20,000,263 rows from a seed (5% held out; generated by a
+             child process that starts before build and runs beside the
+             build, kernels and serve, "generate_seconds" the wait that
+             is left), the three
              coordinates built as dev-scripts/flagship_movielens.py
              builds them, and a 2-iteration game.descent.run with the
              validation AUC after each update. The row movers' launch
@@ -62,6 +65,40 @@ code is non-zero:
              start, the fixed effect's coefficients and those of every
              random-effect entity the data determines (16+ rows, both
              labels). train_bf16_parity: the same in bfloat16.
+   game_cli_train — the GAME CLIs (slice 6 item 5), config 4 at full
+             width: 1,000,000 rows from the seed (5% held out; cut from
+             2,000,000, for time),
+             written as two dataset directories (data/io.py) by a child
+             process that starts after serve and runs beside the config-4
+             phases (its write seconds, then this process's read
+             seconds); game_train through run(build_parser().parse_args())
+             with the flagship's three coordinates (L2 1.0, L-BFGS 25,
+             1 outer iteration (cut from 2, for time), max_samples
+             65,536 on per-user,
+             AUC,AUC@userId), --trace-out, --metrics-dump, the ledger and
+             checkpoints on; beside it GameEstimator.fit of the same rows
+             and configuration. gather_rows = scatter_rows_ launches > 0,
+             equal to the trace's re.fit_wave spans and the ledger's
+             re_fit_wave rows; the last coordinate_update row's
+             validation AUC above the first's; finite coefficients;
+             cli/obs verify passes on the trace; summary.json has the
+             reference's keys.
+   game_cli_score — game_score on that model over the 950,000
+             training rows, one-shot and with --batch-rows 262,144 (4
+             chunks, the last one short; prefetch depth 2, a copy stream
+             and a ring of 3 pinned buffers): the two
+             within 1e-6 relative (and whether bit-identical), every score
+             within 1e-4 of a float64 CPU oracle, batched peak memory
+             under one-shot's and under (depth + 1) × chunk bytes + the
+             model's + 64 MB, photon_scoring_rows_total = the rows
+             scored; rows/s of each way on the rows in memory and, under
+             torch.profiler, the batched copies' time hidden behind
+             scoring kernels and the card's busy share. Then (beside
+             game_cli_sparse's first fit) `python -m
+             photon_ml_torch.cli.game_score` once as its own process
+             without --device on the validation rows: on the card, the
+             same scores as in this process (game_cli_score_process,
+             printed in game_cli_sparse).
 8. sparse_train — the config-5 path: Criteo-shaped sparse data from a
              seed (10,000,000 rows, d = 1,000,000, 32 slots, Zipf(1.3)
              columns; 5% held out; generated by a child process that
@@ -213,6 +250,22 @@ code is non-zero:
              validation AUC within 5e-3 (their coefficients are
              reported; the CPU's own refit over reversed rows, which
              measured that spread, is left out for time).
+   game_cli_sparse — config 5 through game_train from LIBSVM: those
+             300,000 rows, written by the CLI data child as LIBSVM text
+             (one-based, %.9g: every float32 exact) and read back there
+             through game_train's own _load_dataset (for the API fits;
+             each CLI run reads the files itself), row for row
+             sparse_parity's;
+             20 L-BFGS iterations, L2 1.0, with hybrid=auto
+             (hot_value_and_gradient and cold_grad launches = gradient
+             evaluations), hybrid=false (ell_rmatvec launches = gradient
+             evaluations) and --streaming chunk_rows=65536,num_hot=512,
+             dtype=int8 --trace-out (hot_margins and hot_rmatvec launch;
+             cli/obs verify passes on the streamed trace). Each CLI fit's
+             coefficients bit for bit GameEstimator.fit's with the same
+             configuration over the dataset _load_dataset returns, with
+             the same launches. game_cli_score_process runs beside
+             the first fit.
 15. stream_parity — those 300,000 rows streamed on the card in 65,536-row
              chunks, two of them pinned: float32 coefficients within
              5e-3 of the resident fit's after 10 iterations, every
@@ -275,6 +328,7 @@ raises:
              flushes, each request's four stage spans summing to it
              within 1 µs, summarize --serving's p50 within 5% of the
              service's histogram's, the registry's lines on /metrics,
+             photon_scoring_rows_total = the rows the service scored,
              serving_score two launches a flush. Then config (a)'s
              traffic through one more server, a warm round with tracing
              off and one with it on, then sixteen rounds in the order
@@ -296,19 +350,23 @@ raises:
              armed: one live opt_iter row per accepted iteration of each
              leg (the resumed leg appending after the killed one),
              lbfgs.iteration, stream.pass and stream.chunk_transfer spans
-             = iterations, passes and chunks × passes, the int8 transfer
-             bytes = bytes moved, the in-flight peak ≤ 2, stream
+             = iterations, passes and chunks × passes, cli/obs verify
+             clean on the resumed leg's trace (each copy span, which
+             times its enqueue and carries its device seconds, nested in
+             its pass), the int8 transfer bytes = bytes moved, the
+             in-flight peak ≤ 2, stream
              checkpoint writes = saves, no watchdog row, summarize's
              transfer share; a value-and-gradient pass traced against
              untraced, the medians of sixteen passes in turns after a
              warm one of each, within OBS_PASS_RATIO.
 
 The phases run in the order of the main path's data: train, its
-kernels, train_resume, train_bf16, the train parities, sparse_train,
-its kernels, sparse_down_sampled, stream_train, its kernels,
-stream_resume, hybrid_train, cold_grad's kernels, hybrid_bf16_train,
-stream_bf16_train, then the sparse, stream, hybrid, hybrid_bf16 and
-down-sampling parities and the GLM phases. Each line carries the seconds since the
+kernels, train_resume, train_bf16, the train parities, game_cli_train
+and game_cli_score, sparse_train, its kernels, sparse_down_sampled,
+stream_train, its kernels, stream_resume, hybrid_train, cold_grad's
+kernels, hybrid_bf16_train, stream_bf16_train, then the sparse parity,
+game_cli_sparse, the stream, hybrid, hybrid_bf16 and down-sampling
+parities and the GLM phases. Each line carries the seconds since the
 start ("at_seconds"); a "script" line after the last phase gives the
 total and each line's seconds since the one before it.
 
@@ -329,6 +387,7 @@ import json
 import logging
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -933,6 +992,7 @@ def _serve_config(np, torch, ss, serve, args, label, traffic, want, tol,
                 k: v / snap["stage_requests_total"] * 1e3
                 for k, v in snap["stage_seconds_total"].items()},
             "re_cache": snap["re_cache"], **direct,
+            "rows_served": svc.metrics.rows_total,
             "metrics_text": metrics}
 
 
@@ -1108,6 +1168,10 @@ def check_serve_trace(card: str, files: dict, traced: dict,
     if 'photon_boot_seconds{phase="total"}' not in metrics_text \
             or 'photon_boot_seconds{phase="total"}' not in dumped:
         failures.append("/metrics or the dump lacks the registry's lines")
+    scored = obs.metric_value(dumped, "photon_scoring_rows_total")
+    if scored != traced["rows_served"]:
+        failures.append(f"photon_scoring_rows_total {scored} for "
+                        f"{traced['rows_served']} rows served")
     if traced["launches"] != 2 * traced["flushes"] \
             or untraced["launches"] != 2 * untraced["flushes"]:
         failures.append("serving_score launches are not two a flush")
@@ -1127,24 +1191,125 @@ def check_serve_trace(card: str, files: dict, traced: dict,
                          "untraced": untraced["request_p99_ms"]},
          post_p50_ms={"traced": traced["post_p50_ms"],
                       "untraced": untraced["post_p50_ms"]},
-         turns=turns, p50_ratio=turns["ratio"], boot=summary.get("boot"))
+         turns=turns, p50_ratio=turns["ratio"], boot=summary.get("boot"),
+         scoring_rows_total=scored, rows_served=traced["rows_served"])
 
 
 # -- train -----------------------------------------------------------------
 
-def make_train_data(np, rows: int):
-    """Config-4 data at full width from the seed, the last 5% held out
-    for validation (as the flagship does)."""
+def synthetic_train(np, rows: int):
+    """Config 4's ``rows`` at full width from the seed."""
     from photon_ml_torch.data import synthetic
-    from photon_ml_torch.data.game_data import from_synthetic
 
-    ds = from_synthetic(synthetic.game_data(
+    return synthetic.game_data(
         np.random.default_rng(SEED), n=rows, d_global=D_GLOBAL,
         re_specs={"userId": (NUM_USERS, D_RE), "itemId": (NUM_ITEMS, D_RE)},
-        task="logistic"))
+        task="logistic")
+
+
+def make_train_data(np, rows: int, syn=None):
+    """Config-4 data at full width from the seed, the last 5% held out
+    for validation (as the flagship does). ``syn``: the rows already
+    generated (collect_train_data), else they are made here."""
+    from photon_ml_torch.data.game_data import from_synthetic
+
+    ds = from_synthetic(syn if syn is not None else
+                        synthetic_train(np, rows))
     n_val = max(rows // 20, 1)
     return (ds.subset(np.arange(rows - n_val)),
             ds.subset(np.arange(rows - n_val, rows)))
+
+
+# Config 4's 20M rows are the longest host generation left on the path,
+# so a child process makes them while the kernels build and serve runs:
+# the same function and seed, so the same bits (send_arrays' format).
+_TRAIN_CHILD = """\
+import os, sys
+import numpy as np
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+syn = cs.synthetic_train(np, int(sys.argv[1]))
+cs.send_arrays(np, sys.stdout.buffer, {
+    "response": syn.response, "offsets": syn.offsets,
+    "weights": syn.weights, "X_global": syn.X_global,
+    **{"X_entity/" + k: v for k, v in syn.X_entity.items()},
+    **{"entity_ids/" + k: v for k, v in syn.entity_ids.items()}})
+"""
+
+
+def send_arrays(np, out, arrays: dict) -> None:
+    """Named numpy arrays down a binary stream: one JSON line (each
+    array's name, dtype and shape), then their bytes in that order."""
+    out.write((json.dumps([[k, a.dtype.str, list(a.shape)]
+                           for k, a in arrays.items()]) + "\n").encode())
+    for a in arrays.values():
+        view = memoryview(np.ascontiguousarray(a)).cast("B")
+        # One write(2) moves at most 2 GiB less a page; X_global is larger.
+        for lo in range(0, len(view), 1 << 28):
+            out.write(view[lo:lo + (1 << 28)])
+    out.flush()
+
+
+def receive_arrays(np, proc) -> dict:
+    """The arrays a child process sent with send_arrays, each read from
+    its pipe into place."""
+    arrays = {}
+    for name, dtype, shape in json.loads(proc.stdout.readline()):
+        a = np.empty(shape, np.dtype(dtype))
+        read_into(proc, a, name)
+        arrays[name] = a
+    return arrays
+
+
+def start_child(code: str, *args):
+    """A child Python process running ``code`` with ``args`` from the
+    script's directory, its (binary) standard output piped back; stopped
+    at exit if still running."""
+    proc = subprocess.Popen([sys.executable, "-c", code, *map(str, args)],
+                            cwd=ROOT, stdout=subprocess.PIPE)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+        proc.stdout.close()
+        proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def read_into(proc, a, what: str):
+    """Fill ``a`` from the child's standard output."""
+    view, got = memoryview(a).cast("B"), 0
+    while got < len(view):
+        n = proc.stdout.readinto(view[got:])
+        if not n:
+            raise RuntimeError(f"the data child stopped after {got} bytes "
+                               f"of {what} (exit {proc.wait()})")
+        got += n
+
+
+def start_train_data(rows: int):
+    """Start generating config 4's ``rows`` in a child process;
+    collect_train_data takes its arrays."""
+    return start_child(_TRAIN_CHILD, rows)
+
+
+def collect_train_data(np, proc):
+    """The child's SyntheticGameData."""
+    from photon_ml_torch.data import synthetic
+
+    fields: dict = {"X_entity": {}, "entity_ids": {}}
+    for name, a in receive_arrays(np, proc).items():
+        group, _, key = name.partition("/")
+        if key:
+            fields[group][key] = a
+        else:
+            fields[group] = a
+    if proc.wait() != 0:
+        raise RuntimeError(f"the config-4 generator exited {proc.returncode}")
+    return synthetic.SyntheticGameData(
+        num_entities={"userId": NUM_USERS, "itemId": NUM_ITEMS}, **fields)
 
 
 def build_coordinates(np, torch, train, device: str,
@@ -1220,12 +1385,13 @@ def coefficient_tables(model) -> dict:
             "per-item": model.models["per-item"].means}
 
 
-def phase_train(np, torch, card: str) -> dict:
+def phase_train(np, torch, card: str, generator) -> dict:
     from photon_ml_torch.ops.kernels import re_rows as rr
     from photon_ml_torch.optim import lbfgs
 
     t0 = time.perf_counter()
-    train, val = make_train_data(np, TRAIN_ROWS)
+    train, val = make_train_data(np, TRAIN_ROWS,
+                                 collect_train_data(np, generator))
     generate_s = time.perf_counter() - t0
     coords, staging_s = build_coordinates(np, torch, train, "cuda")
     waves = {cid: coords[cid].num_waves for cid in SEQ[1:]}
@@ -1607,20 +1773,9 @@ out.flush()
 
 
 def start_sparse_data(rows: int):
-    """Start generating config 5's ``rows`` in a child process (stopped
-    at exit if still running); collect_sparse_data takes its arrays."""
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _SPARSE_CHILD, str(rows), str(SPARSE_DIM),
-         str(SPARSE_NNZ), str(SEED)], cwd=ROOT, stdout=subprocess.PIPE)
-
-    def stop():
-        if proc.poll() is None:
-            proc.kill()
-        proc.stdout.close()
-        proc.wait()
-
-    atexit.register(stop)
-    return proc
+    """Start generating config 5's ``rows`` in a child process;
+    collect_sparse_data takes its arrays."""
+    return start_child(_SPARSE_CHILD, rows, SPARSE_DIM, SPARSE_NNZ, SEED)
 
 
 def collect_sparse_data(np, torch, proc, rows: int):
@@ -1632,14 +1787,7 @@ def collect_sparse_data(np, torch, proc, rows: int):
         shape = (rows, SPARSE_NNZ) if name in ("indices", "values") \
             else (rows,)
         a = np.empty(shape, np.int32 if name == "indices" else np.float32)
-        view, got = memoryview(a).cast("B"), 0
-        while got < len(view):
-            n = proc.stdout.readinto(view[got:])
-            if not n:
-                raise RuntimeError(f"the config-5 generator stopped after "
-                                   f"{got} bytes of {name} (exit "
-                                   f"{proc.wait()})")
-            got += n
+        read_into(proc, a, name)
         arrays[name] = torch.from_numpy(a)
     if proc.wait() != 0:
         raise RuntimeError(f"the config-5 generator exited {proc.returncode}")
@@ -4932,6 +5080,10 @@ def phase_stream_resume(np, torch, card: str, trained: dict) -> dict:
             legs["resumed"][0].dump(trace_path)
             summary = obs_cli.summarize_trace(
                 obs_cli.load_trace(trace_path))
+            # Every copy span nested in the pass that made it, though
+            # the card runs a pass's copies after the host has closed it.
+            verify_problems = obs_cli.verify_trace(
+                obs_cli.load_trace(trace_path))
     finally:
         obs.set_watchdog(prev_wd)
     expect = {"hot_margins": chunks * (passes["value_grad"]
@@ -5010,6 +5162,10 @@ def phase_stream_resume(np, torch, card: str, trained: dict) -> dict:
     share = summary["attribution"]["transfer_fraction_of_stream"]
     if not 0.0 < share:
         failures.append(f"summarize: transfer share {share}")
+    if verify_problems:
+        failures.append(f"cli/obs verify on the resumed trace: "
+                        f"{len(verify_problems)} problems, "
+                        f"{verify_problems[:3]}")
     # The pass with and without the instrumentation at the final iterate
     # (the same chunks): one warm pass of each, then sixteen in turns
     # (untraced, traced, traced, untraced), the medians compared, so one
@@ -5065,8 +5221,668 @@ def phase_stream_resume(np, torch, card: str, trained: dict) -> dict:
                            "ratio": resumed_per_pass / untraced_fit,
                            "resumed_leg_snapshot_seconds": ckpt_s},
          value_grad_pass_turns=timed_turns,
-         value_grad_pass_ratio=pass_ratio)
+         value_grad_pass_ratio=pass_ratio, verify="ok")
     return launches
+
+
+# -- game_cli --------------------------------------------------------------
+
+# Config 4's rows for the CLI phase (full width, 5% of MovieLens-20M's
+# rows: cut from 2,000,000 when the script crossed its 600 s aim); the
+# batched scoring's chunk (4 chunks of the 950,000 training rows) and its
+# prefetch depth (GameTransformer's default).
+CLI_ROWS = 1_000_000
+# Its fits' outer iterations: 1, cut from the flagship's 2 for time (a
+# config-4 descent is host-bound, ≈ 7 s an iteration at any row count).
+CLI_DESCENT_ITERATIONS = 1
+CLI_BATCH_ROWS = 262_144
+CLI_PREFETCH_DEPTH = 2
+CLI_SPARSE_ITERATIONS = 20
+CLI_STREAMING = "chunk_rows=65536,num_hot=512,dtype=int8"
+SCORE_REL = 1e-6  # batched against one-shot, relative to max(|s|, 1)
+ORACLE_TOL = 1e-4  # every score against the float64 CPU oracle
+SCORE_SLACK_BYTES = 64 << 20
+
+# The CLI phases' input files are written by a child process that starts
+# after serve and runs beside the config-4 phases: config 4's rows as two
+# dataset directories (save_game_dataset), then sparse_parity's rows (the
+# same function and seed, so the same bits) as two LIBSVM files, which it
+# then reads back through game_train's own _load_dataset for the API fits
+# (the same function on the same files, so the same arrays as the CLI
+# runs read). It prints one JSON line when each pair is written, and
+# sends the datasets it read (send_arrays).
+_CLI_DATA_CHILD = """\
+import json, os, sys, time
+import numpy as np
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from photon_ml_torch.data.io import save_game_dataset
+tmp = sys.argv[1]
+t0 = time.perf_counter()
+train, val = cs.make_train_data(np, cs.CLI_ROWS)
+t1 = time.perf_counter()
+save_game_dataset(train, os.path.join(tmp, "train4"))
+save_game_dataset(val, os.path.join(tmp, "val4"))
+t2 = time.perf_counter()
+print(json.dumps({"generate_seconds": t1 - t0, "write_seconds": t2 - t1}),
+      flush=True)
+del train, val
+train, val = cs.make_sparse_data(np, cs.SPARSE_PARITY_ROWS)
+t3 = time.perf_counter()
+cs.write_ell_libsvm(os.path.join(tmp, "train5.libsvm"), train)
+cs.write_ell_libsvm(os.path.join(tmp, "val5.libsvm"), val)
+t4 = time.perf_counter()
+from photon_ml_torch.cli.game_train import _load_dataset
+train = _load_dataset(os.path.join(tmp, "train5.libsvm"))
+dim = train.shard_dim("global")
+val = _load_dataset(os.path.join(tmp, "val5.libsvm"), num_features=dim)
+print(json.dumps({"generate_seconds": t3 - t2, "write_seconds": t4 - t3,
+                  "read_seconds": time.perf_counter() - t4}), flush=True)
+cs.send_arrays(np, sys.stdout.buffer, {
+    f"{part}/{name}": a for part, ds in (("train", train), ("val", val))
+    for name, a in (("response", ds.response), ("offsets", ds.offsets),
+                    ("weights", ds.weights),
+                    ("indices", ds.feature_shards["global"].indices),
+                    ("values", ds.feature_shards["global"].values),
+                    ("num_features", np.asarray(dim)))})
+"""
+
+
+def write_ell_libsvm(path: str, ds) -> None:
+    """A GameDataset's ELL 'global' shard as LIBSVM text: one-based, its
+    valid slots in order, every float32 value to 9 significant digits (so
+    it reads back exactly)."""
+    import numpy as np
+
+    shard = ds.feature_shards["global"]
+    idx, val = np.asarray(shard.indices), np.asarray(shard.values)
+    valid = idx < shard.num_features
+    flat = [None] * (2 * int(valid.sum()))
+    flat[0::2] = (idx[valid] + 1).tolist()
+    flat[1::2] = val[valid].tolist()
+    counts = valid.sum(axis=1).tolist()
+    formats: dict = {}
+    lines, lo = [], 0
+    for label, k in zip(np.asarray(ds.response).tolist(), counts):
+        fmt = formats.get(k)
+        if fmt is None:
+            fmt = formats[k] = "%g" + " %d:%.9g" * k + "\n"
+        lines.append(fmt % (label, *flat[2 * lo: 2 * (lo + k)]))
+        lo += k
+    with open(path, "w") as f:
+        f.write("".join(lines))
+
+
+def start_cli_data(tmp: str):
+    """Start writing the CLI phases' files under ``tmp``; cli_data_ready
+    waits for each pair."""
+    return {"proc": start_child(_CLI_DATA_CHILD, tmp), "tmp": tmp}
+
+
+def cli_data_ready(files: dict) -> dict:
+    """The child's next line: the seconds it took to make and write the
+    next pair of files (waiting for them if need be)."""
+    t0 = time.perf_counter()
+    line = files["proc"].stdout.readline()
+    if not line:
+        raise RuntimeError(f"the CLI data writer stopped (exit "
+                           f"{files['proc'].wait()})")
+    return {**json.loads(line), "waited_seconds": time.perf_counter() - t0}
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the training paths, by name."""
+    from photon_ml_torch.ops.kernels import cold_grad as cg
+    from photon_ml_torch.ops.kernels import ell_scatter as es
+    from photon_ml_torch.ops.kernels import hot_pass as hp
+    from photon_ml_torch.ops.kernels import re_rows as rr
+    from photon_ml_torch.ops.kernels import stream_fused as sf
+
+    return {"gather_rows": rr.gather_rows,
+            "scatter_rows_": rr.scatter_rows_,
+            "ell_rmatvec": es.ell_rmatvec,
+            "scatter_rowterm": es.scatter_rowterm,
+            "hot_margins": sf.hot_margins, "hot_rmatvec": sf.hot_rmatvec,
+            "hot_value_and_gradient": hp.hot_value_and_gradient,
+            "hot_hessian_vector": hp.hot_hessian_vector,
+            "cold_grad": cg.cold_grad}
+
+
+@contextlib.contextmanager
+def counted_launches(torch, out: dict):
+    """Every kernel's launches inside the block (counts set to 0 at its
+    start and read at its end), and its seconds, synchronised."""
+    from photon_ml_torch.optim import lbfgs
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0  # this run of the path starts
+    lbfgs.minimize.host_syncs = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    yield out
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["solver_host_syncs"] = lbfgs.minimize.host_syncs
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+
+
+def cli_run(torch, module, argv: list) -> dict:
+    """One in-process run of a CLI (``run(build_parser().parse_args())``)
+    with the launches, solver host syncs, seconds and peak memory beyond
+    what was allocated before it."""
+    out: dict = {}
+    with counted_launches(torch, out):
+        out["summary"] = module.run(module.build_parser().parse_args(argv))
+    return out
+
+
+def obs_verify(path: str) -> dict:
+    """``python -m photon_ml_torch.cli.obs verify`` on a trace or ledger."""
+    run = subprocess.run(
+        [sys.executable, "-m", "photon_ml_torch.cli.obs", "verify", path],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    return {"rc": run.returncode,
+            "output": (run.stdout + run.stderr).strip()[-600:]}
+
+
+def cli4_argv(train: str, val: str) -> list:
+    """Config 4 through game_train: the flagship's three coordinates,
+    L2 1.0, L-BFGS 25, tolerance 1e-7, CLI_DESCENT_ITERATIONS outer
+    iterations."""
+    opt = "optimizer=LBFGS,reg=L2,reg_weight=1.0,max_iter=25,tolerance=1e-7"
+    return ["--train", train, "--validation", val,
+            "--coordinate", "name=fixed,type=fixed,shard=global",
+            "--coordinate", f"name=per-user,type=random,shard=re_userId,"
+                            f"re=userId,max_samples={UPPER_BOUND}",
+            "--coordinate", "name=per-item,type=random,shard=re_itemId,"
+                            "re=itemId",
+            "--update-sequence", ",".join(SEQ),
+            "--iterations", str(CLI_DESCENT_ITERATIONS),
+            "--evaluators", "AUC,AUC@userId",
+            *[a for cid in SEQ for a in ("--opt-config", f"{cid}:{opt}")]]
+
+
+def cli4_estimator():
+    """cli4_argv's configuration built through the API."""
+    from photon_ml_torch.api.configs import (CoordinateConfiguration,
+                                             FixedEffectDataConfiguration,
+                                             RandomEffectDataConfiguration)
+    from photon_ml_torch.api.estimator import GameEstimator
+    from photon_ml_torch.optim import OptimizerConfig
+    from photon_ml_torch.optim.problem import GLMOptimizationConfiguration
+    from photon_ml_torch.optim.regularization import (RegularizationContext,
+                                                      RegularizationType)
+    from photon_ml_torch.types import TaskType
+
+    opt = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(max_iterations=25, tolerance=1e-7),
+        regularization=RegularizationContext(RegularizationType.L2, 1.0))
+    data = {"fixed": FixedEffectDataConfiguration("global"),
+            "per-user": RandomEffectDataConfiguration(
+                "userId", "re_userId", active_data_upper_bound=UPPER_BOUND),
+            "per-item": RandomEffectDataConfiguration("itemId",
+                                                      "re_itemId")}
+    return GameEstimator(
+        task=TaskType.LOGISTIC_REGRESSION,
+        coordinates={cid: CoordinateConfiguration(data[cid], opt)
+                     for cid in SEQ},
+        update_sequence=list(SEQ), device="cuda",
+        descent_iterations=CLI_DESCENT_ITERATIONS,
+        validation_evaluators=["AUC", "AUC@userId"])
+
+
+def model_tables(model) -> dict:
+    """Each coordinate's coefficient table of a GameModel."""
+    return {cid: getattr(m, "coefficients", m).means
+            for cid, m in model.models.items()}
+
+
+def same_tables(torch, a: dict, b: dict) -> tuple:
+    """(bit for bit, largest gap) of two models' tables."""
+    gap = max(float((x.cpu() - b[k].cpu()).abs().max())
+              for k, x in a.items())
+    return (a.keys() == b.keys() and all(
+        torch.equal(x.cpu(), b[k].cpu()) for k, x in a.items())), gap
+
+
+def oracle_scores(np, model, ds):
+    """Float64 CPU scores of a config-4 model: offsets + X_global·w +
+    each random effect's row dot (zero for entities past its table)."""
+    total = np.asarray(ds.offsets, np.float64).copy()
+    for m in model.models.values():
+        shard = np.asarray(ds.feature_shards[m.shard_id], np.float64)
+        if hasattr(m, "coefficients"):
+            total += shard @ m.coefficients.means.cpu().double().numpy()
+            continue
+        W = m.means.cpu().double().numpy()
+        ids = np.asarray(ds.entity_ids[m.re_type], np.int64)
+        seen = ids < W.shape[0]
+        rows = W[np.where(seen, ids, 0)]
+        total += np.where(seen, np.einsum("nd,nd->n", shard, rows), 0.0)
+    return total
+
+
+def dataset_row_bytes(ds) -> int:
+    """Host bytes a row of a GameDataset holds, over all its arrays."""
+    n = ds.num_rows
+    arrays = [ds.response, ds.offsets, ds.weights,
+              *ds.feature_shards.values(), *ds.entity_ids.values()]
+    return sum(a.nbytes for a in arrays) // n
+
+
+def _merged(spans: list) -> list:
+    """Sorted, overlapping (start, end) intervals merged."""
+    out: list = []
+    for s, t in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], t)
+        else:
+            out.append([s, t])
+    return out
+
+
+def copy_overlap(torch, fn) -> dict:
+    """``fn`` under torch.profiler: the card's host→device copy time, its
+    kernel time, how much of the copy time ran while a kernel ran (the
+    copy hidden behind scoring), and the share of the wall the card was
+    busy with either."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = synced_seconds(torch, fn)
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "Memcpy HtoD" in e.name:
+            copies.append(span)
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.append(span)
+    merged = _merged(kernels)
+    copy_us = sum(t - s for s, t in copies)
+    hidden_us = sum(max(0.0, min(t, mt) - max(s, ms))
+                    for s, t in copies for ms, mt in merged)
+    busy_us = sum(t - s for s, t in _merged(copies + kernels))
+    return {"profiled_seconds": wall, "copies": len(copies),
+            "copy_ms": copy_us / 1e3,
+            "kernel_ms": sum(t - s for s, t in merged) / 1e3,
+            "copy_hidden_ms": hidden_us / 1e3,
+            "copy_hidden_share": (hidden_us / copy_us if copy_us
+                                  else None),
+            "device_busy_share": busy_us * 1e-6 / wall}
+
+
+def phase_game_cli_train(np, torch, card: str, files: dict) -> dict:
+    """Config 4 through the GAME CLIs at full width: game_train over a
+    dataset directory, then game_score on its model, one-shot and in
+    bounded batches, and once more as a separate process."""
+    from photon_ml_torch import obs
+    from photon_ml_torch.api.transformer import GameTransformer
+    from photon_ml_torch.cli import game_score, game_train
+    from photon_ml_torch.cli import obs as obs_cli
+    from photon_ml_torch.data.io import load_game_dataset
+    from photon_ml_torch.models import io as model_io
+    from photon_ml_torch.obs.ledger import read_rows
+
+    written = cli_data_ready(files)
+    tmp = files["tmp"]
+    train_dir, val_dir = (os.path.join(tmp, "train4"),
+                          os.path.join(tmp, "val4"))
+    t0 = time.perf_counter()
+    train = load_game_dataset(train_dir)
+    val = load_game_dataset(val_dir)
+    read_s = time.perf_counter() - t0
+    failures = []
+
+    # The API fit of the same rows and configuration, as the CLI fits.
+    est = cli4_estimator()
+    api: dict = {}
+    with counted_launches(torch, api):
+        result = est.fit(train, val, checkpoint_dir=os.path.join(
+            tmp, "api4-checkpoints"))[0]
+    api_tables = model_tables(result.model)
+    del est, result
+    torch.cuda.empty_cache()
+
+    out = os.path.join(tmp, "out4")
+    trace_path = os.path.join(tmp, "train4-trace.json")
+    metrics_path = os.path.join(tmp, "train4-metrics.prom")
+    fit = cli_run(torch, game_train, cli4_argv(train_dir, val_dir) + [
+        "--output-dir", out, "--trace-out", trace_path,
+        "--metrics-dump", metrics_path])
+    summary = fit["summary"]
+    with open(os.path.join(out, "summary.json")) as f:
+        keys = sorted(json.load(f))
+    trace = obs_cli.load_trace(trace_path)
+    waves = span_counts(trace).get("re.fit_wave", {}).get("spans", 0)
+    rows, row_problems = read_rows(os.path.join(out, "ledger"))
+    ledger_waves = sum(r["kind"] == "re_fit_wave" for r in rows)
+    updates = [r for r in rows if r["kind"] == "coordinate_update"]
+    aucs = [r["validation"]["AUC"] for r in updates]
+    verified = obs_verify(trace_path)
+    best = model_io.load_game_model(os.path.join(out, "best"),
+                                    device="cuda")
+    tables = model_tables(best)
+    bits, gap = same_tables(torch, tables, api_tables)
+    gathers = fit["launches"]["gather_rows"]
+    if not (gathers == fit["launches"]["scatter_rows_"] > 0
+            and gathers == waves == ledger_waves):
+        failures.append(f"gather_rows {gathers}, scatter_rows_ "
+                        f"{fit['launches']['scatter_rows_']}, re.fit_wave "
+                        f"spans {waves}, re_fit_wave rows {ledger_waves}")
+    if row_problems or len(updates) != CLI_DESCENT_ITERATIONS * len(SEQ) \
+            or not aucs[-1] > aucs[0]:
+        failures.append(f"ledger: {row_problems}, {len(updates)} "
+                        f"coordinate_update rows, validation AUC {aucs}")
+    if not all(bool(torch.isfinite(t).all()) for t in tables.values()):
+        failures.append("a coefficient is not finite")
+    if verified["rc"] != 0:
+        failures.append(f"cli/obs verify: {verified['output']}")
+    want_keys = sorted(["task", "model_digest", "candidates",
+                        "best_metrics", "tuning", "ledger",
+                        "wall_seconds"])
+    if keys != want_keys or summary["model_digest"] != \
+            model_io.game_model_digest(best):
+        failures.append(f"summary.json keys {keys}, or a digest that is "
+                        f"not the best model's")
+    emit("game_cli_train", card=card, rows=train.num_rows,
+         val_rows=val.num_rows, data=written, read_seconds=read_s,
+         fit_seconds=fit["seconds"], api_fit_seconds=api["seconds"],
+         launches=fit["launches"], api_launches=api["launches"],
+         solver_host_syncs=fit["solver_host_syncs"],
+         api_solver_host_syncs=api["solver_host_syncs"],
+         max_memory_allocated=fit["peak_bytes"],
+         api_max_memory_allocated=api["peak_bytes"],
+         re_fit_wave_spans=waves, re_fit_wave_rows=ledger_waves,
+         validation_auc=aucs, best_metrics=summary["best_metrics"],
+         bit_identical_to_api=bits, api_max_coefficient_gap=gap,
+         summary_keys=keys, verify="ok" if verified["rc"] == 0 else
+         verified["output"], wall_seconds=summary["wall_seconds"])
+    if failures:
+        raise AssertionError("game_cli_train: " + "; ".join(failures))
+
+    # -- game_score on that model ----------------------------------------
+    best_dir = os.path.join(out, "best")
+    score_runs = {}
+    for way, extra in (("one_shot", []),
+                       ("batched", ["--batch-rows", str(CLI_BATCH_ROWS)])):
+        registry = obs.MetricsRegistry()
+        with obs.activated(metrics_obj=registry):
+            run = cli_run(torch, game_score, [
+                "--data", train_dir, "--model-dir", best_dir,
+                "--output-dir", os.path.join(tmp, f"scores-{way}"),
+                *extra])
+        dump = os.path.join(tmp, f"scores-{way}.prom")
+        registry.dump(dump)
+        run["rows_counted"] = obs.metric_value(obs.parse_prometheus_text(
+            open(dump).read()), "photon_scoring_rows_total")
+        run["scores"] = np.load(os.path.join(
+            tmp, f"scores-{way}", "scores.npz"))["score"]
+        score_runs[way] = run
+    one, batched = (score_runs["one_shot"]["scores"],
+                    score_runs["batched"]["scores"])
+    oracle = oracle_scores(np, best, train)
+    rel = float(np.max(np.abs(batched - one)
+                       / np.maximum(np.abs(one), 1.0)))
+    oracle_err = float(max(np.max(np.abs(one - oracle)),
+                           np.max(np.abs(batched - oracle))))
+    chunk_bytes = dataset_row_bytes(train) * CLI_BATCH_ROWS
+    model_bytes = sum(t.numel() * t.element_size() for t in tables.values())
+    memory_bound = ((CLI_PREFETCH_DEPTH + 1) * chunk_bytes + model_bytes
+                    + SCORE_SLACK_BYTES)
+    peaks = {w: r["peak_bytes"] for w, r in score_runs.items()}
+    counted = {w: r["rows_counted"] for w, r in score_runs.items()}
+
+    # Rows a second of each way on the dataset in memory (the CLI's own
+    # seconds hold the dataset's read and the scores' write): a warm run,
+    # then three in turns, the median of each; and the batched way's
+    # copies against its scoring.
+    transformer = GameTransformer(best)
+    ways = {"one_shot": lambda: transformer.transform(train),
+            "batched": lambda: transformer.transform_batched(
+                train, CLI_BATCH_ROWS)}
+    runs: dict = {way: [] for way in ways}
+    for way in ("one_shot", "batched", "batched", "one_shot") * 2:
+        runs[way].append(synced_seconds(torch, ways[way])[1])
+    rates = {way: {"seconds": sorted(r[1:])[1], "runs": r,
+                   "rows_per_s": train.num_rows / sorted(r[1:])[1]}
+             for way, r in runs.items()}
+    overlap = copy_overlap(torch, lambda: transformer.transform_batched(
+        train, CLI_BATCH_ROWS))
+
+    # The validation rows scored in this process, for the module entry
+    # point's own process (game_cli_sparse starts it beside its reads).
+    here_out = os.path.join(tmp, "scores-val-here")
+    game_score.run(game_score.build_parser().parse_args([
+        "--data", val_dir, "--model-dir", best_dir, "--output-dir",
+        here_out]))
+
+    if not rel <= SCORE_REL:
+        failures.append(f"batched scores {rel} from one-shot's (relative)")
+    if not oracle_err <= ORACLE_TOL:
+        failures.append(f"scores {oracle_err} from the float64 oracle")
+    if not (peaks["batched"] < peaks["one_shot"]
+            and peaks["batched"] <= memory_bound):
+        failures.append(f"peak memory {peaks}, bound {memory_bound}")
+    if any(v != train.num_rows for v in counted.values()):
+        failures.append(f"photon_scoring_rows_total {counted} for "
+                        f"{train.num_rows} rows")
+    emit("game_cli_score", card=card, rows=train.num_rows,
+         batch_rows=CLI_BATCH_ROWS,
+         chunks=-(-train.num_rows // CLI_BATCH_ROWS),
+         prefetch_depth=CLI_PREFETCH_DEPTH,
+         cli_seconds={w: r["seconds"] for w, r in score_runs.items()},
+         scoring=rates, batched_max_rel_diff=rel,
+         bit_identical=bool(np.array_equal(one, batched)),
+         oracle_max_abs_err=oracle_err, peak_bytes=peaks,
+         chunk_bytes=chunk_bytes, model_bytes=model_bytes,
+         memory_bound_bytes=memory_bound, rows_counted=counted,
+         batched_copies=overlap)
+    if failures:
+        raise AssertionError("game_cli_score: " + "; ".join(failures))
+    return {"launches": fit["launches"], "best_dir": best_dir,
+            "val_dir": val_dir, "val_rows": val.num_rows,
+            "val_scores": os.path.join(here_out, "scores.npz")}
+
+
+def start_score_process(cli4: dict, out: str) -> dict:
+    """``python -m photon_ml_torch.cli.game_score`` as a process of its
+    own, without --device, on config 4's validation rows."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_torch.cli.game_score",
+         "--data", cli4["val_dir"], "--model-dir", cli4["best_dir"],
+         "--output-dir", out], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return {"proc": proc, "out": out, "t0": time.perf_counter()}
+
+
+def check_score_process(np, card: str, started: dict, cli4: dict) -> None:
+    """The game_score process ran on the card and wrote the scores this
+    process wrote for the same rows."""
+    proc = started["proc"]
+    _, err = proc.communicate(timeout=600)
+    seconds = time.perf_counter() - started["t0"]
+    same = proc.returncode == 0 and np.array_equal(
+        np.load(os.path.join(started["out"], "scores.npz"))["score"],
+        np.load(cli4["val_scores"])["score"])
+    on_card = "rows on cuda" in err
+    emit("game_cli_score_process", card=card, rows=cli4["val_rows"],
+         seconds=seconds, rc=proc.returncode, on_card=on_card,
+         same_scores=same)
+    if not (same and on_card):
+        raise AssertionError(f"game_score process: rc {proc.returncode}, on "
+                             f"the card: {on_card}, same scores: {same}: "
+                             f"{err[-600:]}")
+
+
+def cli5_argv(train: str, val: str, coordinate: str) -> list:
+    return ["--train", train, "--validation", val,
+            "--coordinate", f"name=ctr,type=fixed,shard=global{coordinate}",
+            "--update-sequence", "ctr", "--evaluators", "AUC",
+            "--opt-config",
+            f"ctr:optimizer=LBFGS,reg=L2,reg_weight=1.0,"
+            f"max_iter={CLI_SPARSE_ITERATIONS},tolerance=1e-7"]
+
+
+def canonical_rows(np, shard, width: int):
+    """An ELL shard's rows with their valid slots sorted by column and
+    padding last, under one sentinel, ``width`` slots a row: the rows
+    whatever the slot order, the slots a row and the width of the
+    feature space."""
+    idx = np.asarray(shard.indices).astype(np.int64)
+    val = np.asarray(shard.values)
+    pad = idx >= shard.num_features
+    idx = np.where(pad, np.iinfo(np.int64).max, idx)
+    val = np.where(pad, 0.0, val).astype(np.float32)
+    order = np.argsort(idx, axis=1, kind="stable")
+    idx = np.take_along_axis(idx, order, axis=1)
+    val = np.take_along_axis(val, order, axis=1)
+    extra = width - idx.shape[1]
+    return (np.pad(idx, ((0, 0), (0, extra)),
+                   constant_values=np.iinfo(np.int64).max),
+            np.pad(val, ((0, 0), (0, extra))))
+
+
+def ell_dataset(arrays: dict, part: str):
+    """The GameDataset of one ELL 'global' shard that receive_arrays gave
+    as ``part``'s arrays."""
+    from photon_ml_torch.data.game_data import GameDataset, SparseShard
+
+    return GameDataset(
+        response=arrays[f"{part}/response"],
+        offsets=arrays[f"{part}/offsets"],
+        weights=arrays[f"{part}/weights"],
+        feature_shards={"global": SparseShard(
+            indices=arrays[f"{part}/indices"],
+            values=arrays[f"{part}/values"],
+            num_features=int(arrays[f"{part}/num_features"]))},
+        entity_ids={}, num_entities={}, intercept_index={})
+
+
+def phase_game_cli_sparse(np, torch, card: str, files: dict,
+                          parity: dict, cli4: dict) -> dict:
+    """Config 5 through game_train from LIBSVM files of sparse_parity's
+    rows: the hybrid layout, ELL and the int8 streamed path, each CLI fit
+    bit for bit GameEstimator.fit's over the dataset the CLI loads (read
+    by the data child through the same _load_dataset). game_cli_score's
+    own process runs beside the first fit."""
+    from photon_ml_torch.api.configs import (CoordinateConfiguration,
+                                             FixedEffectDataConfiguration,
+                                             parse_streaming_config)
+    from photon_ml_torch.api.estimator import GameEstimator
+    from photon_ml_torch.cli import game_train
+    from photon_ml_torch.models import io as model_io
+    from photon_ml_torch.optim import OptimizerConfig
+    from photon_ml_torch.optim.problem import GLMOptimizationConfiguration
+    from photon_ml_torch.optim.regularization import (RegularizationContext,
+                                                      RegularizationType)
+    from photon_ml_torch.types import TaskType
+
+    written = cli_data_ready(files)
+    arrays = receive_arrays(np, files["proc"])
+    train, val = (ell_dataset(arrays, part) for part in ("train", "val"))
+    tmp = files["tmp"]
+    scoring = start_score_process(cli4, os.path.join(tmp, "scores-val-sub"))
+    train_path, val_path = (os.path.join(tmp, "train5.libsvm"),
+                            os.path.join(tmp, "val5.libsvm"))
+    failures = []
+    for got, want, label in ((train, parity["train"], "training"),
+                             (val, parity["val"], "validation")):
+        a, b = got.feature_shards["global"], want.feature_shards["global"]
+        width = max(a.indices.shape[1], b.indices.shape[1])
+        same = np.array_equal(got.response, want.response) and all(
+            np.array_equal(x, y) for x, y in zip(
+                canonical_rows(np, a, width), canonical_rows(np, b, width)))
+        if not same:
+            failures.append(f"the LIBSVM {label} rows are not "
+                            f"sparse_parity's")
+
+    opt = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(max_iterations=CLI_SPARSE_ITERATIONS,
+                                  tolerance=1e-7),
+        regularization=RegularizationContext(RegularizationType.L2, 1.0))
+    modes = {
+        "hybrid": (None, "", None),
+        "ell": (False, ",hybrid=false", None),
+        "stream": (None, "", CLI_STREAMING)}
+    report = {}
+    for mode, (hybrid, coordinate, streaming) in modes.items():
+        est = GameEstimator(
+            task=TaskType.LOGISTIC_REGRESSION,
+            coordinates={"ctr": CoordinateConfiguration(
+                FixedEffectDataConfiguration("global", hybrid=hybrid),
+                opt)},
+            update_sequence=["ctr"], device="cuda",
+            validation_evaluators=["AUC"],
+            streaming=(parse_streaming_config(streaming)
+                       if streaming else None))
+        api: dict = {}
+        with counted_launches(torch, api):
+            result = est.fit(train, val, checkpoint_dir=os.path.join(
+                tmp, f"api5-{mode}-checkpoints"))[0]
+        solver = result.history.records[-1]["solver"]
+        api_w = result.model.models["ctr"].coefficients.means.cpu()
+        del est, result
+        out = os.path.join(tmp, f"out5-{mode}")
+        extra = ["--output-dir", out]
+        trace_path = None
+        if streaming:
+            trace_path = os.path.join(tmp, "stream5-trace.json")
+            extra += ["--streaming", streaming, "--trace-out", trace_path]
+        fit = cli_run(torch, game_train,
+                      cli5_argv(train_path, val_path, coordinate) + extra)
+        w = model_io.load_game_model(os.path.join(out, "best"),
+                                     device="cpu").models["ctr"]
+        bits = torch.equal(w.coefficients.means, api_w)
+        got = fit["launches"]
+        evals = solver["gradient_evaluations"]
+        entry = {"fit_seconds": fit["seconds"],
+                 "api_fit_seconds": api["seconds"], "launches": got,
+                 "api_launches": api["launches"], "solver": solver,
+                 "auc": fit["summary"]["best_metrics"]["AUC"],
+                 "bit_identical_to_api": bits,
+                 "max_memory_allocated": fit["peak_bytes"]}
+        if not bits:
+            gap = float((w.coefficients.means - api_w).abs().max())
+            failures.append(f"{mode}: the CLI's coefficients are not "
+                            f"GameEstimator.fit's (largest gap {gap})")
+        if got != api["launches"]:
+            failures.append(f"{mode}: launches {got}, the API fit's "
+                            f"{api['launches']}")
+        if mode == "hybrid" and not (
+                got["hot_value_and_gradient"] == evals
+                and got["cold_grad"] == evals > 0):
+            failures.append(f"hybrid: launches {got} for {evals} "
+                            f"evaluations")
+        if mode == "ell" and not got["ell_rmatvec"] == evals > 0:
+            failures.append(f"ell: launches {got} for {evals} gradient "
+                            f"evaluations")
+        if mode == "stream":
+            entry["verify"] = obs_verify(trace_path)
+            if not (got["hot_margins"] > 0 and got["hot_rmatvec"] > 0):
+                failures.append(f"stream: launches {got}")
+            if entry["verify"]["rc"] != 0:
+                failures.append(f"stream: cli/obs verify: "
+                                f"{entry['verify']['output']}")
+        report[mode] = entry
+        if scoring is not None:
+            # game_score's own process has run beside this first fit.
+            check_score_process(np, card, scoring, cli4)
+            scoring = None
+    emit("game_cli_sparse", card=card, rows=train.num_rows,
+         val_rows=val.num_rows, dim=train.shard_dim("global"),
+         data=written, iterations=CLI_SPARSE_ITERATIONS, streaming=CLI_STREAMING,
+         fits=report)
+    if failures:
+        raise AssertionError("game_cli_sparse: " + "; ".join(failures))
+    return {m: r["launches"] for m, r in report.items()}
 
 
 def main() -> int:
@@ -5087,6 +5903,7 @@ def main() -> int:
                           f"{photon_ml_torch.__file__}, not beside "
                           f"this script")
     resolve_device("cuda")
+    train_generator = start_train_data(TRAIN_ROWS)
     card = nvidia_smi_line()
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -5103,7 +5920,10 @@ def main() -> int:
     floor_us = launch_floor_us(torch)
     launches, flushes = phase_serve(np, torch, card)
     sparse_generator = start_sparse_data(SPARSE_ROWS)
-    trained = phase_train(np, torch, card)
+    cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    atexit.register(shutil.rmtree, cli_tmp, True)
+    cli_files = start_cli_data(cli_tmp)
+    trained = phase_train(np, torch, card, train_generator)
     re_checks = phase_re_rows(np, torch, trained)
     resumed = phase_train_resume(np, torch, card, trained)
     re_launches = {"gather": trained["gathers"],
@@ -5120,6 +5940,9 @@ def main() -> int:
     phase_train_parity(np, torch, card, train4, val4, "bfloat16",
                        "train_bf16_parity", PARITY_EARLY_ITERATIONS)
     del train4, val4
+    torch.cuda.empty_cache()
+    cli4 = phase_game_cli_train(np, torch, card, cli_files)
+    torch.cuda.empty_cache()
     sparse_trained = phase_sparse_train(np, torch, card, sparse_generator)
     ell_checks, rmatvec_checks = phase_ell_scatter(np, torch,
                                                    sparse_trained)
@@ -5155,6 +5978,8 @@ def main() -> int:
     del stream_bf16["coord"], train5, val5
     torch.cuda.empty_cache()
     parity = phase_sparse_parity(np, torch, card)
+    cli5 = phase_game_cli_sparse(np, torch, card, cli_files, parity, cli4)
+    torch.cuda.empty_cache()
     stream_parity_f32 = phase_stream_parity(np, torch, card, parity)
     tron_hybrid_launches = phase_hybrid_parity(np, torch, card, parity)
     tron_hybrid_bf16_launches = phase_hybrid_parity(
@@ -5193,7 +6018,10 @@ def main() -> int:
             "source": "photon_ml_torch/csrc/re_rows.cu",
             "replaces": f"photon_ml_tpu/ops/kernels/re_rows.py:{line}",
             "launches": re_launches[key],
-            "resume_launches": resumed[key + "s"], "max_abs_err": 0.0,
+            "resume_launches": resumed[key + "s"],
+            "game_cli_launches": cli4["launches"][
+                "gather_rows" if key == "gather" else "scatter_rows_"],
+            "max_abs_err": 0.0,
             "ms": m["ms"], "plain_ms": m[plain_key],
             "plain_timing": ("graph replay" if plain_key == "plain_ms" else
                              "per call from Python: the plain scatter reads "
@@ -5215,6 +6043,8 @@ def main() -> int:
         "hybrid_bf16_launches": hybrid_bf16["launches"]["ell_scatter"],
         "stream_bf16_launches": stream_bf16["launches"]["ell_scatter"],
         "stream_resume_launches": stream_resumed["ell_scatter"],
+        "game_cli_launches": {m: cli5[m]["scatter_rowterm"]
+                              for m in ("hybrid", "stream")},
         "max_abs_err": max(c["max_abs_err"] for c in ell_checks),
         "parity_rel": max(c["parity_rel"] for c in ell_checks),
         "column_ratio": max(c["column_ratio"] for c in ell_checks),
@@ -5237,6 +6067,7 @@ def main() -> int:
         "hybrid_ell_launches": hybrid_ell_launches,
         "down_sampled_launches": down_sampled["launches"],
         "down_sampling_parity_launches": ds_parity["ell"]["ell_rmatvec"],
+        "game_cli_launches": cli5["ell"]["ell_rmatvec"],
         "max_abs_err": max(c["max_abs_err"] for c in rmatvec_checks),
         "parity_rel": max(c["parity_rel"] for c in rmatvec_checks),
         "column_ratio": max(c["column_ratio"] for c in rmatvec_checks),
@@ -5275,6 +6106,8 @@ def main() -> int:
             "stream_bf16_launches": stream_bf16["launches"][name],
             "hybrid_bf16_launches": hybrid_bf16["launches"][name],
             "stream_resume_launches": stream_resumed[name],
+            "game_cli_launches": {m: cli5[m][name]
+                                  for m in ("hybrid", "stream")},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "parity_rel": max(c["parity_rel"] for c in mine),
             "term_ratio": max(c["term_ratio"] for c in mine),
@@ -5316,6 +6149,7 @@ def main() -> int:
                             "hybrid_parity's TRON fit"),
             "down_sampling_parity_launches":
                 ds_parity["hybrid"][name],
+            "game_cli_launches": cli5["hybrid"][name],
             "max_abs_err": hot_pass_checks[name]["max_abs_err"],
             "parity_rel": hot_pass_checks[name]["parity_rel"],
             "column_ratio": hot_pass_checks[name]["column_ratio"],
@@ -5367,6 +6201,7 @@ def main() -> int:
         "launches": hybrid_launches["cold_grad"],
         "hybrid_bf16_launches": hybrid_bf16["launches"]["cold_grad"],
         "down_sampling_parity_launches": ds_parity["hybrid"]["cold_grad"],
+        "game_cli_launches": cli5["hybrid"]["cold_grad"],
         "max_abs_err": max(c["max_abs_err"] for c in cold_checks),
         "parity_rel": max(c["parity_rel"] for c in cold_checks),
         "column_ratio": max(c["column_ratio"] for c in cold_checks),

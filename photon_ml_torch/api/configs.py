@@ -9,9 +9,10 @@ optimization bundles of ``optimization/game/*Configuration.scala``.
 
 ``StreamingConfig`` routes sparse fixed effects onto the row-streamed
 path. The factored random-effect configuration is here so that the
-estimator can name the slice that ports it; the staging, ingest and
-sweep configurations and the CLI mini-DSL parsers come with the slices
-that port their paths.
+estimator can name the slice that ports it. The CLI mini-DSL parsers
+(``parse_kv``, ``parse_streaming_config``, ``parse_optimizer_config``)
+are the reference's; the staging, ingest and sweep configurations are
+not ported, so their parsers raise and name the slice that brings them.
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Union
 
-from photon_ml_torch.optim.problem import GLMOptimizationConfiguration
+from photon_ml_torch import not_ported
+from photon_ml_torch.optim.common import OptimizerConfig, OptimizerType
+from photon_ml_torch.optim.problem import (GLMOptimizationConfiguration,
+                                           VarianceComputationType)
+from photon_ml_torch.optim.regularization import (RegularizationContext,
+                                                  RegularizationType)
 
 __all__ = [
     "CoordinateConfiguration",
@@ -28,6 +34,12 @@ __all__ = [
     "FixedEffectDataConfiguration",
     "RandomEffectDataConfiguration",
     "StreamingConfig",
+    "parse_ingest_config",
+    "parse_kv",
+    "parse_optimizer_config",
+    "parse_staging_config",
+    "parse_streaming_config",
+    "parse_sweep_config",
 ]
 
 
@@ -205,3 +217,97 @@ class CoordinateConfiguration:
             out.append(dataclasses.replace(self.optimization,
                                            regularization=reg))
         return out
+
+
+def parse_kv(spec: str) -> dict[str, str]:
+    """Parse the ``key=value,...`` mini-DSL used by reference-style config
+    strings (shared by optimizer configs and CLI coordinate specs)."""
+    kv: dict[str, str] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        k, sep, v = part.partition("=")
+        if not sep:
+            raise ValueError(f"bad config token {part!r} in {spec!r}")
+        kv[k.strip()] = v.strip()
+    return kv
+
+
+def parse_staging_config(spec: str):
+    """The random-effect staging pipeline's mini-DSL: not ported (the
+    projected staging pipeline is slice 6 item 6)."""
+    raise not_ported("the staging pipeline (--staging)", 6)
+
+
+def parse_ingest_config(spec: str):
+    """The parallel Avro ingestion mini-DSL: not ported (slice 9)."""
+    raise not_ported("parallel Avro ingestion (--ingest)", 9)
+
+
+def parse_streaming_config(spec: str) -> StreamingConfig:
+    """Parse ``key=value,...`` mini-DSL for the row-streamed fixed-effect
+    path (docs/STREAMING.md). An empty spec (bare ``--streaming``) takes
+    every default.
+
+    Keys: chunk_rows (rows per streamed chunk), num_hot (hot-dense
+    columns per chunk), dtype (float32|bfloat16|int8 chunk storage;
+    default inherits the coordinate's dtype), depth (prefetch transfers
+    in flight), pin (leading chunks pinned on the device), workers
+    (staging canonicalization threads), solver (lbfgs|sdca|sgd; the
+    stochastic solvers raise in the estimator, slice 7).
+    """
+    kv = parse_kv(spec)
+    known = {"chunk_rows", "num_hot", "dtype", "depth", "pin", "workers",
+             "solver"}
+    unknown = set(kv) - known
+    if unknown:
+        raise ValueError(f"unknown streaming keys {sorted(unknown)}; "
+                         f"expected {sorted(known)}")
+    defaults = StreamingConfig()
+    return StreamingConfig(
+        chunk_rows=(int(kv["chunk_rows"]) if "chunk_rows" in kv
+                    else defaults.chunk_rows),
+        num_hot=int(kv["num_hot"]) if "num_hot" in kv else defaults.num_hot,
+        feature_dtype=kv["dtype"].lower() if "dtype" in kv else None,
+        prefetch_depth=(int(kv["depth"]) if "depth" in kv
+                        else defaults.prefetch_depth),
+        pin_chunks=int(kv["pin"]) if "pin" in kv else defaults.pin_chunks,
+        workers=int(kv["workers"]) if "workers" in kv else None,
+        solver=(kv["solver"].lower() if "solver" in kv
+                else defaults.solver),
+    )
+
+
+def parse_sweep_config(spec: str):
+    """The dirty-gated sweep mini-DSL: not ported (slice 8)."""
+    raise not_ported("dirty-gated incremental sweeps (--sweep)", 8)
+
+
+def parse_optimizer_config(spec: str) -> GLMOptimizationConfiguration:
+    """Parse ``key=value,...`` mini-DSL (reference-style config strings).
+
+    Keys: optimizer (LBFGS|OWLQN|TRON), max_iter, tolerance,
+    reg (NONE|L1|L2|ELASTIC_NET), reg_weight, alpha, down_sampling_rate,
+    variance (NONE|SIMPLE|FULL). Other keys are ignored, as in the
+    reference.
+    """
+    kv = parse_kv(spec)
+
+    opt = OptimizerConfig(
+        optimizer_type=OptimizerType(kv.get("optimizer", "LBFGS").upper()),
+        max_iterations=int(kv.get("max_iter", 100)),
+        tolerance=float(kv.get("tolerance", 1e-7)),
+    )
+    reg = RegularizationContext(
+        reg_type=RegularizationType(kv.get("reg", "NONE").upper()),
+        reg_weight=float(kv.get("reg_weight", 0.0)),
+        elastic_net_alpha=float(kv.get("alpha", 0.5)),
+    )
+    return GLMOptimizationConfiguration(
+        optimizer=opt,
+        regularization=reg,
+        variance_computation=VarianceComputationType(
+            kv.get("variance", "NONE").upper()),
+        down_sampling_rate=float(kv.get("down_sampling_rate", 1.0)),
+    )

@@ -8,10 +8,10 @@ written by either package.
 ``summarize trace.json`` renders the phase waterfall, the top-span table,
 and the transfer-vs-pass attribution from a Chrome trace-event file
 produced by ``GameEstimator(trace=...)`` or ``cli/serve.py --trace-out``
-(``--serving``: the request-path view). On a card the streamed chunk
-transfers carry device time (CUDA events) and each ``stream.pass`` span
-its device seconds as ``args.device_seconds``; the attribution then
-divides device time by device time.
+(``--serving``: the request-path view). On a card each streamed chunk
+transfer and each ``stream.pass`` span carry their time on the card
+(CUDA events) as ``args.device_seconds``; the attribution then divides
+device time by device time.
 
 ``tail <ledger-dir>`` renders a LIVE run from its run ledger
 (obs/ledger.py): current coordinate/iteration, objective value, an ETA
@@ -130,6 +130,12 @@ def verify_trace(trace: dict) -> list[str]:
 # -- summarize --------------------------------------------------------------
 
 
+def _device_us(e: dict) -> float:
+    """A span's microseconds on the card where it carries them
+    (``args.device_seconds``), else its own."""
+    return e.get("args", {}).get("device_seconds", e["dur"] / 1e6) * 1e6
+
+
 def summarize_trace(trace: dict, top: int = 12) -> dict:
     """Waterfall + top spans + transfer-vs-compute attribution."""
     spans = _spans(trace)
@@ -167,14 +173,15 @@ def summarize_trace(trace: dict, top: int = 12) -> dict:
     # Transfer vs compute: transfer = the device_put accounting spans
     # (cat "transfer"); the denominator is the streamed-pass time when
     # passes exist (the bench-comparable fraction), else the wall.
-    transfer_us = sum(e["dur"] for e in spans
+    # A transfer or a pass timed on the card (args.device_seconds) counts
+    # its time there: the attribution compares the card's clock with
+    # itself.
+    transfer_us = sum(_device_us(e) for e in spans
                       if e.get("cat") == "transfer")
-    # A pass timed on the card (args.device_seconds) is compared on the
-    # card's clock: its transfers are device-timed too.
     pass_host_us = sum(e["dur"] for e in spans
                        if e["name"] == "stream.pass")
-    pass_us = sum(e.get("args", {}).get("device_seconds", e["dur"] / 1e6)
-                  * 1e6 for e in spans if e["name"] == "stream.pass")
+    pass_us = sum(_device_us(e) for e in spans
+                  if e["name"] == "stream.pass")
     # Per-dtype attribution: every chunk-transfer span carries its
     # chunk's storage dtype (f32/bf16/int8 — the quantized-streaming
     # lever), so the stream's byte/second split per dtype falls out of
@@ -187,7 +194,7 @@ def summarize_trace(trace: dict, top: int = 12) -> dict:
         args = e.get("args", {})
         d = by_dtype.setdefault(str(args.get("dtype", "unknown")),
                                 {"seconds": 0.0, "bytes": 0, "chunks": 0})
-        d["seconds"] += e["dur"] / 1e6
+        d["seconds"] += _device_us(e) / 1e6
         d["bytes"] += int(args.get("bytes", 0) or 0)
         d["chunks"] += 1
     denom = pass_us if pass_us > 0 else wall_us

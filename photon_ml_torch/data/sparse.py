@@ -172,6 +172,16 @@ def from_csr(indptr: np.ndarray, indices: np.ndarray, values: np.ndarray,
         num_features)
 
 
+def from_libsvm(data, max_nnz: Optional[int] = None,
+                offsets: Optional[np.ndarray] = None) -> SparseBatch:
+    """LibsvmData (CSR path, ``read_libsvm(..., dense=False)``) ->
+    SparseBatch."""
+    if data.indptr is None:
+        raise ValueError("LibsvmData has no CSR arrays (dense file?)")
+    return from_csr(data.indptr, data.indices, data.values, data.labels,
+                    data.num_features, offsets=offsets, max_nnz=max_nnz)
+
+
 def synthetic_sparse(n: int, num_features: int, nnz_per_row: int,
                      task: str = "logistic", seed: int = 0,
                      noise: float = 0.25, zipf: bool = True

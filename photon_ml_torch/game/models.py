@@ -9,7 +9,9 @@ A random-effect model is ONE (num_entities, d) tensor: scoring is a row
 gather and a rowwise dot. Entities without a trained model keep zero
 rows, and ids beyond the table contribute exactly zero (the reference's
 passive/unseen-entity semantics). ``score`` runs on the device the
-model's tensors live on; datasets stay host numpy and are copied there.
+model's tensors live on. A dataset's arrays are host numpy, copied there
+per call, or tensors already placed (``data/prefetch.stage_dataset``),
+which are used as they are when they live on the model's device.
 """
 
 from __future__ import annotations
@@ -28,8 +30,16 @@ from photon_ml_torch.types import TaskType
 Tensor = torch.Tensor
 
 
-def _on(x: np.ndarray, like: Tensor) -> Tensor:
-    return torch.as_tensor(np.asarray(x), device=like.device)
+def _to(x, device: torch.device) -> Tensor:
+    """``x`` (host numpy or a tensor) on ``device``: no copy for a tensor
+    already there."""
+    if isinstance(x, Tensor):
+        return x.to(device)
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
+def _on(x, like: Tensor) -> Tensor:
+    return _to(x, like.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +59,10 @@ class FixedEffectModel:
         if isinstance(shard, SparseShard):
             return ell_matvec(_on(shard.indices, means),
                               _on(shard.values, means), means)
-        return _on(shard, means) @ means
+        # A rowwise product and sum, not a matrix-vector product: each
+        # row's sum then has one order whatever the rows around it, so
+        # scoring in row chunks gives the same bits as scoring at once.
+        return torch.sum(_on(shard, means) * means, dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,7 +199,7 @@ class GameModel:
         scores = self.coordinate_scores(dataset)
         device = (next(iter(scores.values())).device if scores
                   else torch.device("cpu"))
-        total = (torch.as_tensor(dataset.offsets, device=device)
+        total = (_to(dataset.offsets, device)
                  if include_offsets else
                  torch.zeros(dataset.num_rows, dtype=torch.float32,
                              device=device))

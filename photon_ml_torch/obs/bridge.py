@@ -1,8 +1,9 @@
 """Event→span bridge: lifecycle events become spans, counters, instants.
 
 Port of ``photon_ml_tpu/obs/bridge.py``. Every finally-guarded
-``*Start``/``*Finish`` pair (Training, StreamStage here; Staging, Ingest
-and Scoring come with the slices that emit them — utils/events.py)
+``*Start``/``*Finish`` pair (Training, StreamStage and Scoring here;
+Staging and Ingest come with the slices that emit them —
+utils/events.py)
 becomes a span with ZERO call-site rewrites: the bridge is one listener
 on the event emitter. Because events fire synchronously in the emitting
 thread and the pairs are finally-guarded, opening the span on Start and

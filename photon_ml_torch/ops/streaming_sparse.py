@@ -57,14 +57,17 @@ streamed chunk a ``stream.chunk_transfer`` span (cat ``transfer``) with
 and the ``photon_stream_inflight_chunks`` gauge; off, each site is one
 ``None`` check. The bytes and chunks counted equal ``bytes_moved`` and
 ``chunks_moved``. On the CPU a chunk is read in place and its span times
-that read on the host. On a card the copy is asynchronous, so the host
-sees only its enqueue: the copy is timed instead by a pair of CUDA
-events around it on the copy stream (and each pass by a pair on the
-compute stream), read only once the events have completed — at the next
-pass, whose caller has read the previous pass's value by then, or at
-:meth:`ChunkStream.flush_timings` — and recorded then as a closed span
-(``Tracer.record_complete``, ``clock="device"``) at the host time of the
-enqueue. Reading them never waits on the card.
+that read on the host. On a card the copy is asynchronous, so its span
+times the copy's enqueue on the host, as the reference's times its
+``device_put``, and nests in its pass by construction. The copy itself
+is timed by a pair of CUDA events around it on the copy stream (and each
+pass by a pair on the compute stream), read only once the events have
+completed — at the next pass, whose caller has read the previous pass's
+value by then, or at :meth:`ChunkStream.flush_timings` — and set then on
+the span as ``device_seconds`` (and on the pass's). Reading them never
+waits on the card. (A device-timed span placed at its enqueue would end
+after its pass whenever the host finishes enqueueing a pass before the
+card finishes its copies.)
 
 Not ported here: the sharded stream and mesh helpers (slice 9), fault
 sites and the transfer retry ladder (slices 9–10), the compile-cache
@@ -75,6 +78,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import contextlib
 import dataclasses
 import json
 import logging
@@ -644,17 +648,13 @@ class ChunkStream:
         calls this first, after its caller has read the previous pass's
         value)."""
         while self._timed_copies and self._timed_copies[0][-1].query():
-            (mx, tr, i, nbytes, dtype, e0, parent, start,
-             end) = self._timed_copies.popleft()
+            mx, span, dtype, start, end = self._timed_copies.popleft()
             seconds = start.elapsed_time(end) / 1e3
             if mx is not None:
                 mx.counter("photon_transfer_seconds_total", kind="stream",
                            dtype=dtype).inc(seconds)
-            if tr is not None:
-                tr.record_complete(
-                    "stream.chunk_transfer", cat="transfer", t0_epoch_ns=e0,
-                    dur_s=seconds, parent=parent, index=i, bytes=nbytes,
-                    dtype=dtype, clock="device")
+            if span is not None:
+                span.set(device_seconds=seconds)
         while self._timed_passes and self._timed_passes[0][-1].query():
             span, start, end = self._timed_passes.popleft()
             span.set(device_seconds=start.elapsed_time(end) / 1e3)
@@ -681,11 +681,14 @@ class ChunkStream:
         def issue(k: int, i: int):
             b = k % depth
             host = self.chunked.chunks[i]
-            with torch.cuda.stream(copy):
+            nbytes, dtype = _chunk_nbytes(host), chunk_dtype(host)
+            span = (tr.span("stream.chunk_transfer", cat="transfer",
+                            index=i, bytes=nbytes, dtype=dtype)
+                    if tr is not None else contextlib.nullcontext())
+            with span, torch.cuda.stream(copy):
                 if released[b] is not None:
                     copy.wait_event(released[b])
                 if timed:
-                    e0 = time.time_ns()
                     start = torch.cuda.Event(enable_timing=True)
                     start.record(copy)
                 buf = self._buffers[b]
@@ -695,10 +698,9 @@ class ChunkStream:
                 ready.record(copy)
             self._count(host)
             if timed:
-                nbytes, dtype = _chunk_nbytes(host), chunk_dtype(host)
                 self._timed_copies.append(
-                    (mx, tr, i, nbytes, dtype, e0,
-                     None if tr is None else tr.current(), start, ready))
+                    (mx, span if tr is not None else None, dtype, start,
+                     ready))
                 if mx is not None:
                     _count_transfer(mx, nbytes, dtype)
             pending.append((i, b, ready))

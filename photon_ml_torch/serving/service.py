@@ -18,6 +18,11 @@ Scoring semantics match the offline ``GameModel.score``: scores are
 offsets + Σ coordinate contributions, unseen entities contribute zero,
 ``as_mean`` applies the task's inverse link.
 
+The service emits the reference's scoring lifecycle on ``emitter``:
+``ScoringStart(source="serving")`` when it comes up, one
+``ScoringBatch`` a flush (which the obs bridge counts into
+``photon_scoring_rows_total``) and ``ScoringFinish`` at close.
+
 With a tracer active each request becomes a ``serving.request`` span
 parented into the ``serving.flush`` span that scored it, with one child
 span per stage (queue wait, assemble, device score, respond) that sum to
@@ -50,6 +55,8 @@ from photon_ml_torch.serving.batcher import (BatcherQueueFull,
                                              bucket_batch)
 from photon_ml_torch.serving.metrics import ServingMetrics
 from photon_ml_torch.serving.model_store import ResidentModelStore
+from photon_ml_torch.utils.events import (ScoringBatch, ScoringFinish,
+                                          ScoringStart, default_emitter)
 
 logger = logging.getLogger("photon_ml_torch.serving")
 
@@ -113,6 +120,7 @@ class ScoringService:
         slo_window_s: float = 60.0,
         slo_availability: float = 0.999,
         slo_latency_ms: Optional[float] = None,
+        emitter=default_emitter,
     ):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -148,6 +156,8 @@ class ScoringService:
             on_deadline=self.metrics.record_deadline_exceeded,
             depth_gauge=self.metrics.queue_depth)
         self._closed = False
+        self.emitter = emitter
+        emitter.emit(ScoringStart(source="serving", num_rows=None))
 
     def _on_worker_death(self, exc: BaseException) -> None:
         self.metrics.record_recovery()
@@ -242,6 +252,8 @@ class ScoringService:
             t_d1 = time.monotonic()
         dt = t_d1 - t_d0
         self.metrics.record_batch(n, padded, dt)
+        self.emitter.emit(ScoringBatch(source="serving", rows=n,
+                                       padded_rows=padded, seconds=dt))
         return out[:n], (t_a0, t_d0, t_d1)
 
     def score(self, requests: Sequence[ScoringRequest]) -> np.ndarray:
@@ -355,6 +367,9 @@ class ScoringService:
             return
         self._closed = True
         self.batcher.close()
+        self.emitter.emit(ScoringFinish(
+            source="serving", num_rows=self.metrics.rows_total,
+            wall_seconds=self.metrics.uptime_seconds()))
 
     def __enter__(self):
         return self

@@ -8,9 +8,10 @@ callable. Listeners must be cheap and non-failing; a raising listener is
 logged and detached rather than killing training.
 
 The events here are the ones the ported paths emit (coordinate descent,
-checkpoint recovery, the streamed fixed effect's chunk staging and the
-convergence watchdogs), with the reference's field names; the others
-come with the slices that emit them. ``obs/bridge.py`` turns each
+checkpoint recovery, the streamed fixed effect's chunk staging, the
+convergence watchdogs, and scoring: offline by ``game_score`` and
+online by the serving service), with the reference's field names; the
+others come with the slices that emit them. ``obs/bridge.py`` turns each
 ``*Start``/``*Finish`` pair into a span and the point events into
 timeline instants and counters.
 """
@@ -100,6 +101,35 @@ class WatchdogAlert(Event):
     action: str
     detail: str
     coordinate: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoringStart(Event):
+    """A scoring lifecycle begins — one offline driver run (``source=
+    "game_score"``) or one online service coming up (``source="serving"``,
+    ``num_rows`` None: the stream is unbounded)."""
+
+    source: str
+    num_rows: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoringBatch(Event):
+    """One device scoring batch finished: ``rows`` real rows scored inside
+    a ``padded_rows``-shaped program (shape-bucketing pads; padded_rows ==
+    rows on the unbatched offline path)."""
+
+    source: str
+    rows: int
+    padded_rows: int
+    seconds: float
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoringFinish(Event):
+    source: str
+    num_rows: int
+    wall_seconds: float
 
 
 class EventEmitter:

@@ -1,7 +1,10 @@
 """chip_smoke.py's host-side helpers, on the CPU at a small size.
 
-Config 5's rows are generated by a child process beside the config-4
-phases; they must be the bits that ``synthetic_sparse`` gives in process.
+Config 4's rows are generated by a child process while the kernels build
+and serve runs, and config 5's by another beside the config-4 phases;
+they must be the bits that ``synthetic.game_data`` and
+``synthetic_sparse`` give in process. game_cli_sparse's LIBSVM files read
+back the rows they were written from.
 """
 
 import os
@@ -33,3 +36,45 @@ def test_child_generates_config5_rows_bit_for_bit():
         assert torch.equal(a, b), name
     train, val = chip_smoke.make_sparse_data(np, ROWS, got)
     assert (train.num_rows, val.num_rows) == (ROWS - ROWS // 20, ROWS // 20)
+
+
+def test_child_generates_config4_rows_bit_for_bit():
+    proc = chip_smoke.start_train_data(ROWS)
+    got = chip_smoke.collect_train_data(np, proc)
+    want = chip_smoke.synthetic_train(np, ROWS)
+    assert proc.returncode == 0
+    assert got.num_entities == want.num_entities
+    for name in ("response", "offsets", "weights", "X_global"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    for name in ("X_entity", "entity_ids"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert list(a) == list(b), name
+        for k in b:
+            assert a[k].dtype == b[k].dtype, (name, k)
+            assert np.array_equal(a[k], b[k]), (name, k)
+    train, val = chip_smoke.make_train_data(np, ROWS, got)
+    assert (train.num_rows, val.num_rows) == (ROWS - ROWS // 20, ROWS // 20)
+    assert list(train.feature_shards) == ["global", "re_userId",
+                                          "re_itemId"]
+
+
+def test_libsvm_text_reads_back_the_rows(tmp_path):
+    """game_cli_sparse's LIBSVM files: game_train's own loader gives back
+    the rows they were written from (every float32 exact), and the
+    row check tells other rows apart."""
+    from photon_ml_torch.cli.game_train import _load_dataset
+
+    train, _ = chip_smoke.make_sparse_data(np, 2_000)
+    path = str(tmp_path / "rows.libsvm")
+    chip_smoke.write_ell_libsvm(path, train)
+    got = _load_dataset(path)
+    a, b = got.feature_shards["global"], train.feature_shards["global"]
+    width = max(a.indices.shape[1], b.indices.shape[1])
+    assert np.array_equal(got.response, train.response)
+    for x, y in zip(chip_smoke.canonical_rows(np, a, width),
+                    chip_smoke.canonical_rows(np, b, width)):
+        assert np.array_equal(x, y)
+    b.values[0, 0] += 1.0
+    assert not np.array_equal(chip_smoke.canonical_rows(np, a, width)[1],
+                              chip_smoke.canonical_rows(np, b, width)[1])

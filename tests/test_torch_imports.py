@@ -115,6 +115,22 @@ def test_entry_points_refuse_cpu_fallback(tmp_path):
     with ScoringService(model, device="cpu") as svc:
         assert svc.device == torch.device("cpu")
         assert svc.store.random[0].cache.device.type == "cpu"
+    # The GAME drivers refuse before they read any data.
+    from photon_ml_torch.cli import game_score, game_train
+
+    missing = str(tmp_path / "no-such-data")
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            game_train.run(game_train.build_parser().parse_args([
+                "--train", missing, "--coordinate",
+                "name=fixed,type=fixed,shard=global", "--update-sequence",
+                "fixed", "--output-dir", str(tmp_path / "out"), *argv]))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            game_score.run(game_score.build_parser().parse_args([
+                "--data", missing, "--model-dir", str(tmp_path),
+                "--output-dir", str(tmp_path / "scores"), *argv]))
+    assert not os.path.exists(str(tmp_path / "out"))
+    assert not os.path.exists(str(tmp_path / "scores"))
 
 
 def test_precision_policy_keeps_float32():

@@ -15,6 +15,7 @@ with it on.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -531,21 +532,73 @@ def test_summarize_and_verify_cli():
 
 
 def test_summarize_reads_device_timed_passes():
-    """A card's trace: transfers carry device time and each pass its
-    device seconds; the attribution divides device by device."""
+    """A card's trace: each transfer and each pass carries its device
+    seconds; the attribution divides device by device."""
     t = obs.Tracer()
     with t.span("stream.pass", cat="stream") as sp:
-        base = time.time_ns()
         for i in range(3):
-            t.record_complete("stream.chunk_transfer", cat="transfer",
-                              t0_epoch_ns=base, dur_s=0.001,
-                              parent=sp.span_id, index=i, bytes=10,
-                              dtype="int8", clock="device")
+            with t.span("stream.chunk_transfer", cat="transfer", index=i,
+                        bytes=10, dtype="int8") as cp:
+                cp.set(device_seconds=0.001)
     sp.set(device_seconds=0.004)
     a = obs_cli.summarize_trace(t.chrome_trace())["attribution"]
     assert a["stream_pass_seconds"] == pytest.approx(0.004)
+    assert a["transfer_seconds"] == pytest.approx(0.003)
     assert a["transfer_fraction_of_stream"] == pytest.approx(0.75)
     assert a["transfer_by_dtype"]["int8"]["chunks"] == 3
+    assert a["transfer_by_dtype"]["int8"]["seconds"] == pytest.approx(0.003)
+
+
+class _CompletedEvent:
+    """A CUDA event's stand-in that has completed at ``ms`` on the card's
+    clock."""
+
+    def __init__(self, ms: float):
+        self.ms = ms
+
+    def query(self) -> bool:
+        return True
+
+    def elapsed_time(self, end: "_CompletedEvent") -> float:
+        return end.ms - self.ms
+
+
+def test_device_timed_copies_nest_in_their_pass():
+    """The host enqueues a pass's copies and closes the pass long before
+    the card has run them (50 ms of copies after a pass of microseconds
+    on the host): flush_timings sets each copy's device seconds on its
+    span, which times the enqueue and so nests in the pass; the metrics
+    and the attribution count the device seconds. A copy span stamped at
+    its enqueue with its device duration ended after its pass, which
+    cli/obs verify flags."""
+    from photon_ml_torch.ops import streaming_sparse as ss
+
+    t, mx = obs.Tracer(), obs.MetricsRegistry()
+    st = object.__new__(ss.ChunkStream)  # the stream's timing state only
+    st._timed_copies = collections.deque()
+    st._timed_passes = collections.deque()
+    with t.span("stream.pass", cat="stream") as sp:
+        for i in range(2):
+            with t.span("stream.chunk_transfer", cat="transfer", index=i,
+                        bytes=8, dtype="int8") as cp:
+                pass
+            st._timed_copies.append((mx, cp, "int8", _CompletedEvent(
+                30.0 * i), _CompletedEvent(30.0 * i + 25.0)))
+    st._timed_passes.append((sp, _CompletedEvent(0.0),
+                             _CompletedEvent(60.0)))
+    st.flush_timings()
+    trace = t.chrome_trace()
+    assert obs_cli.verify_trace(trace) == []
+    copies = [e for e in trace["traceEvents"]
+              if e["name"] == "stream.chunk_transfer"]
+    assert [e["args"]["device_seconds"] for e in copies] == \
+        pytest.approx([0.025, 0.025])
+    a = obs_cli.summarize_trace(trace)["attribution"]
+    assert a["transfer_seconds"] == pytest.approx(0.05)
+    assert a["transfer_fraction_of_stream"] == pytest.approx(0.05 / 0.06)
+    parsed = obs.parse_prometheus_text(mx.render_text())
+    assert parsed['photon_transfer_seconds_total{dtype="int8",'
+                  'kind="stream"}'] == pytest.approx(0.05)
 
 
 def test_verify_flags_unfinished_and_orphan_spans():
