@@ -360,15 +360,41 @@ raises:
              untraced, the medians of sixteen passes in turns after a
              warm one of each, within OBS_PASS_RATIO.
 
+   sparse_re_train — the reference's flagship sparse random effect
+             (dev-scripts/flagship_sparse_re.py: d = 1,000,000, 16-column
+             pools an entity, 8 nonzeros a row, seed 7; rows and entities
+             as SPARSE_RE_ROWS/SPARSE_RE_ENTITIES, made by a child process
+             started before build) through RandomEffectCoordinate: a
+             reckoning line first (the staged blocks' bytes), then cold
+             staging into a staging cache under a tracer and a registry
+             (the staging span, photon_staging_shards_total), a first and
+             a steady train_model plus score, each under torch.profiler
+             (the card's busy share) with re_rows' launches = waves =
+             re.fit_wave spans, the AUC against the labels (bar 0.9), a
+             SubspaceRandomEffectModel with no (E, d) table, peak memory;
+             a second coordinate re-staged from the cache (every shard a
+             hit, the waves bit for bit the cold ones), a third after two
+             shards' commit markers were deleted (exactly those restage,
+             the same bits), and the row movers held bit for bit at the
+             subspace table's wave shape.
+   sparse_re_parity — the same path at 300,000 rows and 30,000 entities
+             on the card and on the CPU: staged waves bit-equal,
+             coefficients within PARITY_TOL, one model's scores through
+             both within 1e-5, AUCs within PARITY_TOL, launches = waves;
+             then a dense projected coordinate (an intercept,
+             STANDARDIZATION, features_to_samples_ratio 0.5) with its
+             variances, card against CPU.
+
 The phases run in the order of the main path's data: train, its
 kernels, train_resume, train_bf16, the train parities, game_cli_train
 and game_cli_score, sparse_train, its kernels, sparse_down_sampled,
 stream_train, its kernels, stream_resume, hybrid_train, cold_grad's
 kernels, hybrid_bf16_train, stream_bf16_train, then the sparse parity,
 game_cli_sparse, the stream, hybrid, hybrid_bf16 and down-sampling
-parities and the GLM phases. Each line carries the seconds since the
-start ("at_seconds"); a "script" line after the last phase gives the
-total and each line's seconds since the one before it.
+parities, the GLM phases, and the sparse random-effect phases. Each line
+carries the seconds since the start ("at_seconds"); a "script" line after
+the last phase gives the total and each line's seconds since the one
+before it.
 
 Then it prints the kernel table ({"kernels": [...]}; the hybrid block's
 fused pass as hot_value_and_gradient and hot_hessian_vector, its
@@ -5885,6 +5911,484 @@ def phase_game_cli_sparse(np, torch, card: str, files: dict,
     return {m: r["launches"] for m, r in report.items()}
 
 
+# -- sparse_re_train / sparse_re_parity -----------------------------------
+
+# The reference's flagship sparse random effect
+# (dev-scripts/flagship_sparse_re.py): per-entity 16-column pools over
+# d = 1,000,000, 8 nonzeros a row, planted per-entity coefficients,
+# min 2 rows an entity, L2 1.0, 12 L-BFGS iterations at tolerance 1e-6.
+# Its 10,000,000 rows and 1,000,000 entities are cut to a quarter, 10
+# rows an entity kept, d and the pools not cut: at full size the script
+# took 708.9 s against its 600 s aim (PERF.md §4).
+SPARSE_RE_ROWS = 2_500_000
+SPARSE_RE_ENTITIES = 250_000
+SPARSE_RE_DIM = 1_000_000
+SPARSE_RE_POOL = 16
+SPARSE_RE_NNZ = 8
+SPARSE_RE_SEED = 7
+SPARSE_RE_LOWER_BOUND = 2
+SPARSE_RE_ITERATIONS = 12
+SPARSE_RE_AUC_BAR = 0.9
+# Staging-cache shards whose commit markers are deleted before the third
+# coordinate: the second and the second-to-last.
+SPARSE_RE_RESTAGE = (1, -2)
+SPARSE_RE_PARITY_ROWS = 300_000
+SPARSE_RE_PARITY_ENTITIES = 30_000
+# The dense projected coordinate of sparse_re_parity: an intercept, the
+# shard's STANDARDIZATION, the Pearson cap at ratio 0.5.
+PROJECTED_ROWS = 20_000
+PROJECTED_ENTITIES = 500
+PROJECTED_DIM = 32
+PROJECTED_RATIO = 0.5
+SCORE_TOL = 1e-5
+
+
+def make_sparse_re_arrays(np, rows: int, entities: int) -> dict:
+    """The flagship's rows from the seed, made as the reference's script
+    makes them."""
+    d, pool, nnz = SPARSE_RE_DIM, SPARSE_RE_POOL, SPARSE_RE_NNZ
+    rng = np.random.default_rng(SPARSE_RE_SEED)
+    ids = rng.integers(0, entities, size=rows).astype(np.int32)
+    pools = rng.integers(0, d, size=(entities, pool)).astype(np.int32)
+    slot = rng.integers(0, pool, size=(rows, nnz))
+    idx = np.sort(pools[ids[:, None], slot], axis=1)
+    dup = np.zeros_like(idx, bool)
+    dup[:, 1:] = idx[:, 1:] == idx[:, :-1]
+    vals = rng.normal(size=(rows, nnz)).astype(np.float32)
+    idx[dup] = d
+    vals[dup] = 0.0
+    beta = rng.normal(0, 1.0, size=(entities, pool)).astype(np.float32)
+    margin = (np.where(dup, 0.0, vals)
+              * beta[ids[:, None], slot]).sum(axis=1)
+    y = (rng.random(rows) < 1.0 / (1.0 + np.exp(-margin))).astype(
+        np.float32)
+    return {"ids": ids, "indices": idx, "values": vals, "labels": y}
+
+
+# The flagship's rows are made by a child process started before build,
+# as config 4's are: the same function and seed, so the same bits.
+_SPARSE_RE_CHILD = """\
+import os, sys
+import numpy as np
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+cs.send_arrays(np, sys.stdout.buffer,
+               cs.make_sparse_re_arrays(np, int(sys.argv[1]),
+                                        int(sys.argv[2])))
+"""
+
+
+def start_sparse_re_data(rows: int, entities: int):
+    return start_child(_SPARSE_RE_CHILD, rows, entities)
+
+
+def collect_sparse_re_data(np, proc) -> dict:
+    arrays = receive_arrays(np, proc)
+    if proc.wait() != 0:
+        raise RuntimeError(f"the sparse RE generator exited "
+                           f"{proc.returncode}")
+    return arrays
+
+
+def sparse_re_dataset(np, arrays: dict, entities: int):
+    from photon_ml_torch.data.game_data import GameDataset, SparseShard
+
+    n = arrays["ids"].shape[0]
+    return GameDataset(
+        response=arrays["labels"], offsets=np.zeros(n, np.float32),
+        weights=np.ones(n, np.float32),
+        feature_shards={"re": SparseShard(arrays["indices"],
+                                          arrays["values"], SPARSE_RE_DIM)},
+        entity_ids={"userId": arrays["ids"]},
+        num_entities={"userId": entities}, intercept_index={})
+
+
+def sparse_re_config(iterations: int = SPARSE_RE_ITERATIONS):
+    from photon_ml_torch.optim import OptimizerConfig
+    from photon_ml_torch.optim.problem import GLMOptimizationConfiguration
+    from photon_ml_torch.optim.regularization import (RegularizationContext,
+                                                      RegularizationType)
+
+    return GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(max_iterations=iterations,
+                                  tolerance=1e-6),
+        regularization=RegularizationContext(RegularizationType.L2, 1.0))
+
+
+def sparse_re_coordinate(ds, device: str, cache_dir=None):
+    from photon_ml_torch.game.coordinates import RandomEffectCoordinate
+    from photon_ml_torch.ops import losses
+
+    return RandomEffectCoordinate(
+        ds, "userId", "re", losses.LOGISTIC, sparse_re_config(),
+        lower_bound=SPARSE_RE_LOWER_BOUND, staging_cache_dir=cache_dir,
+        device=device)
+
+
+def staged_reckoning(np, ids, entities: int, width: int) -> dict:
+    """The staged blocks' bytes before the run: every kept entity's
+    capacity × ``width`` float32 features, beside its labels, weights and
+    example ids (the bucketing's own capacities)."""
+    counts = np.bincount(ids, minlength=entities)
+    kept = counts[counts >= SPARSE_RE_LOWER_BOUND]
+    caps = np.maximum(8, 1 << np.ceil(np.log2(np.maximum(kept, 1))).astype(
+        np.int64))
+    slots = int(caps.sum())
+    return {"entities": int(kept.size), "slots": slots,
+            "block_bytes": slots * (width * 4 + 4 + 4 + 8),
+            "table_bytes": entities * width * 4}
+
+
+def same_waves(torch, a, b) -> bool:
+    """Two coordinates' staged waves equal bit for bit (compared on the
+    first one's device)."""
+    if len(a._waves) != len(b._waves):
+        return False
+    for wa, wb in zip(a._waves, b._waves):
+        for f in ("X", "y", "w", "ex", "rows", "cols"):
+            x, y = getattr(wa, f), getattr(wb, f)
+            if not torch.equal(x, y.to(x.device)):
+                return False
+    return True
+
+
+class StagingEvents:
+    """The staging events of a block of code (a listener on the default
+    emitter for its duration)."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        from photon_ml_torch.utils import events as ev
+
+        ev.default_emitter.register(self.events.append)
+        return self
+
+    def __exit__(self, *exc):
+        from photon_ml_torch.utils import events as ev
+
+        ev.default_emitter.unregister(self.events.append)
+
+    def of(self, kind: str) -> list:
+        return [e for e in self.events if type(e).__name__ == kind]
+
+
+def profiled(torch, fn, device: str = "cuda") -> tuple:
+    """``fn()`` under torch.profiler, recording the card's activity only
+    (a host-side record of a solver's many small operators costs minutes
+    to reduce): its result, its wall seconds, and the card's busy time
+    against that wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if device != "cuda":
+        out, wall = timed_call(torch, fn, device)
+        return out, wall, {}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, wall = synced_seconds(torch, fn)
+    events = device_events(prof)
+    busy_us = sum(e.self_device_time_total for e in events)
+    return out, wall, {"device_busy_us": busy_us,
+                       "device_busy_share": busy_us * 1e-6 / wall,
+                       "device_launches": sum(e.count for e in events),
+                       "profile_seconds": time.perf_counter() - t0 - wall}
+
+
+def timed_call(torch, fn, device: str) -> tuple:
+    if device == "cuda":
+        return synced_seconds(torch, fn)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def reset_row_launches():
+    from photon_ml_torch.ops.kernels import re_rows as rr
+
+    rr.gather_rows.launches = rr.scatter_rows_.launches = 0
+
+
+def row_launches() -> dict:
+    from photon_ml_torch.ops.kernels import re_rows as rr
+
+    return {"gather": rr.gather_rows.launches,
+            "scatter": rr.scatter_rows_.launches}
+
+
+def phase_sparse_re_train(np, torch, card: str, generator,
+                          entities: int = SPARSE_RE_ENTITIES,
+                          device: str = "cuda") -> dict:
+    """The flagship sparse random effect through RandomEffectCoordinate:
+    cold staging into a staging cache, a first and a steady train_model
+    plus score, the AUC, the row movers' launches against the waves and
+    the re.fit_wave spans, then a warm re-stage from the cache (the same
+    bits) and a partial one (exactly the shards whose markers were
+    deleted restage)."""
+    from photon_ml_torch import obs
+    from photon_ml_torch.evaluation.evaluators import auc
+    from photon_ml_torch.game.models import SubspaceRandomEffectModel
+    from photon_ml_torch.ops.kernels import re_rows as rr
+
+    t0 = time.perf_counter()
+    arrays = collect_sparse_re_data(np, generator)
+    wait = time.perf_counter() - t0
+    rows = arrays["ids"].shape[0]
+    ds = sparse_re_dataset(np, arrays, entities)
+    reckoning = staged_reckoning(np, arrays["ids"], entities,
+                                 SPARSE_RE_POOL)
+    emit("sparse_re_reckoning", card=card, rows=rows, entities=entities,
+         dim=SPARSE_RE_DIM, nnz_per_row=SPARSE_RE_NNZ,
+         generate_wait_seconds=wait,
+         host_data_bytes=int(sum(a.nbytes for a in arrays.values())),
+         dense_matrix_bytes=rows * SPARSE_RE_DIM * 4,
+         dense_table_bytes=entities * SPARSE_RE_DIM * 4,
+         staged_at_width_16=reckoning,
+         card_free_bytes=(torch.cuda.mem_get_info()[0]
+                          if device == "cuda" else None))
+    cache = tempfile.mkdtemp(prefix="chip_smoke_re_cache_")
+    atexit.register(shutil.rmtree, cache, True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    tracer, metrics = obs.Tracer(), obs.MetricsRegistry()
+    offsets = torch.zeros(rows, dtype=torch.float32, device=device)
+    labels = torch.as_tensor(arrays["labels"], device=device)
+    failures = []
+    runs = {}
+    with StagingEvents() as cold_events, obs.activated(tracer, metrics):
+        t = time.perf_counter()
+        coord = sparse_re_coordinate(ds, device, cache)
+        init_seconds = time.perf_counter() - t
+        waves = coord.num_waves
+        for run in ("first", "steady"):
+            reset_row_launches()
+            spans_before = span_counts(tracer.chrome_trace()).get(
+                "re.fit_wave", {"spans": 0})["spans"]
+            model, fit_s, busy = profiled(
+                torch, lambda: coord.train_model(offsets), device)
+            launches = row_launches()
+            scores, score_s = timed_call(torch, lambda: coord.score(model),
+                                         device)
+            spans = span_counts(tracer.chrome_trace())["re.fit_wave"][
+                "spans"] - spans_before
+            runs[run] = {"train_seconds": fit_s, "score_seconds": score_s,
+                         "launches": launches, "fit_wave_spans": spans,
+                         **busy}
+            if device == "cuda" and not (
+                    launches["gather"] == launches["scatter"] == waves
+                    == spans):
+                failures.append(f"{run}: re_rows launches {launches}, "
+                                f"{spans} re.fit_wave spans, {waves} waves")
+        t = time.perf_counter()
+        coord.wait_staged()
+        join_seconds = time.perf_counter() - t
+    auc_value = float(auc(scores, labels))
+    finish = cold_events.of("StagingFinish")
+    shards = cold_events.of("StagingShard")
+    table = coord.subspace_cols.shape
+    peak = (torch.cuda.max_memory_allocated() - base
+            if device == "cuda" else None)
+    counters = {k: v for k, v in metrics.snapshot().items()
+                if k.startswith("photon_staging")}
+    if not isinstance(model, SubspaceRandomEffectModel):
+        failures.append(f"model is {type(model).__name__}")
+    if tuple(model.means.shape) != table or table[1] > 64:
+        failures.append(f"table {tuple(model.means.shape)}")
+    if auc_value <= SPARSE_RE_AUC_BAR:
+        failures.append(f"AUC {auc_value} <= {SPARSE_RE_AUC_BAR}")
+    if not (len(finish) == 1 and len(shards) == coord._stager.num_shards
+            and all(e.source == "staged" for e in shards)):
+        failures.append(f"cold staging events: {len(shards)} shards, "
+                        f"{len(finish)} finishes")
+    cold = {"init_seconds": init_seconds,
+            "staging_wall_seconds": finish[0].wall_seconds if finish
+            else None,
+            "join_seconds": join_seconds, "shards": len(shards),
+            "staging_spans": span_counts(tracer.chrome_trace()).get(
+                "staging")}
+
+    # A warm re-stage from the complete cache entry: the same bits.
+    num_shards = coord._stager.num_shards
+    with StagingEvents() as warm_events:
+        t = time.perf_counter()
+        warm = sparse_re_coordinate(ds, device, cache).wait_staged()
+        warm_seconds = time.perf_counter() - t
+    warm_start = warm_events.of("StagingStart")[0]
+    warm_same = (same_waves(torch, coord, warm)
+                 and np.array_equal(coord.subspace_cols, warm.subspace_cols)
+                 and torch.equal(coord._sp_flatpos, warm._sp_flatpos))
+    if warm_start.cached_shards != num_shards or not warm_same:
+        failures.append(f"warm: {warm_start.cached_shards} of {num_shards} "
+                        f"cached, bit-equal {warm_same}")
+    del warm
+
+    # Two shards' commit markers deleted: exactly they restage.
+    (key,) = os.listdir(cache)
+    victims = sorted({i % num_shards for i in SPARSE_RE_RESTAGE})
+    for i in victims:
+        os.remove(os.path.join(cache, key, f"s{i}.ok"))
+    with StagingEvents() as part_events:
+        t = time.perf_counter()
+        part = sparse_re_coordinate(ds, device, cache).wait_staged()
+        part_seconds = time.perf_counter() - t
+    restaged = sorted(e.index for e in part_events.of("StagingShard")
+                      if e.source == "staged")
+    part_same = same_waves(torch, coord, part)
+    if restaged != victims or not part_same:
+        failures.append(f"partial: restaged {restaged}, deleted {victims}, "
+                        f"bit-equal {part_same}")
+    del part
+
+    # The row movers at this path's wave shape (d = A), bit for bit.
+    wave_rows = coord.wave_rows
+    kernel_check = (check_re_rows(torch, rr, model.means.contiguous(),
+                                  wave_rows[0], "sparse_re wave 0", True)
+                    if device == "cuda" else None)
+    emit("sparse_re_train", card=card, rows=rows, entities=entities,
+         dim=SPARSE_RE_DIM, iterations=SPARSE_RE_ITERATIONS,
+         buckets=[(b.capacity, b.num_entities)
+                  for b in coord.bucketing.buckets],
+         waves=waves, shards=num_shards, table=list(table),
+         widths=sorted({int(w.cols.shape[1]) for w in coord._waves}),
+         cold=cold, runs=runs, auc=auc_value,
+         auc_bar=SPARSE_RE_AUC_BAR, peak_bytes=peak,
+         staged_bytes=sum(sum(t.nbytes for t in (
+             w.X, w.y, w.w, w.ex, w.rows, w.cols)) for w in coord._waves),
+         staging_counters=counters,
+         warm={"seconds": warm_seconds,
+               "cached_shards": warm_start.cached_shards,
+               "bit_equal": warm_same},
+         partial={"seconds": part_seconds, "deleted": victims,
+                  "restaged": restaged, "bit_equal": part_same},
+         kernel_check=kernel_check)
+    if failures:
+        raise AssertionError("sparse_re_train: " + "; ".join(failures))
+    return {"waves": waves, "launches": runs["first"]["launches"],
+            "check": kernel_check}
+
+
+def projected_dense_dataset(np):
+    """A dense shard whose entities each use about half of its columns,
+    an intercept at column 0, and its STANDARDIZATION."""
+    from photon_ml_torch.data.game_data import GameDataset
+    from photon_ml_torch.normalization import (NormalizationType,
+                                               build_normalization)
+
+    n, E, d = PROJECTED_ROWS, PROJECTED_ENTITIES, PROJECTED_DIM
+    rng = np.random.default_rng(SPARSE_RE_SEED)
+    ids = rng.integers(0, E, n).astype(np.int32)
+    emask = rng.random((E, d)) < 0.5
+    X = (rng.normal(1.0, 2.0, size=(n, d))
+         * (rng.random((n, d)) < 0.6) * emask[ids]).astype(np.float32)
+    X[:, 0] = 1.0
+    beta = rng.normal(size=(E, d)) * 0.5
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-(X * beta[ids]).sum(1)))
+         ).astype(np.float32)
+    ds = GameDataset(
+        response=y, offsets=np.zeros(n, np.float32),
+        weights=np.ones(n, np.float32), feature_shards={"re": X},
+        entity_ids={"userId": ids}, num_entities={"userId": E},
+        intercept_index={"re": 0})
+    norm = build_normalization(
+        NormalizationType.STANDARDIZATION, means=X.mean(0),
+        variances=X.var(0), intercept_index=0)
+    return ds, norm
+
+
+def phase_sparse_re_parity(np, torch, card: str) -> dict:
+    """sparse_re_train's path at 300,000 rows on the card and on the
+    CPU: staged bits, coefficients, scores and AUC; then a dense
+    projected coordinate with normalization and the Pearson cap."""
+    from photon_ml_torch.evaluation.evaluators import auc
+    from photon_ml_torch.game.coordinates import RandomEffectCoordinate
+    from photon_ml_torch.ops import losses
+    from photon_ml_torch.optim import OptimizerConfig
+    from photon_ml_torch.optim.problem import (GLMOptimizationConfiguration,
+                                               VarianceComputationType)
+    from photon_ml_torch.optim.regularization import (RegularizationContext,
+                                                      RegularizationType)
+
+    failures = []
+    arrays = make_sparse_re_arrays(np, SPARSE_RE_PARITY_ROWS,
+                                   SPARSE_RE_PARITY_ENTITIES)
+    ds = sparse_re_dataset(np, arrays, SPARSE_RE_PARITY_ENTITIES)
+    labels = torch.from_numpy(arrays["labels"])
+    out = {}
+    coords, models, scores = {}, {}, {}
+    for k, dev in enumerate(("cuda", "cpu")):
+        t = time.perf_counter()
+        coords[dev] = sparse_re_coordinate(ds, dev).wait_staged()
+        stage_s = time.perf_counter() - t
+        off = torch.zeros(ds.num_rows, dtype=torch.float32, device=dev)
+        reset_row_launches()
+        models[dev], fit_s = timed_call(
+            torch, lambda: coords[dev].train_model(off), dev)
+        if k == 0:
+            launches = row_launches()
+        scores[dev] = coords[dev].score(models[dev]).cpu()
+        out[dev] = {"stage_seconds": stage_s, "train_seconds": fit_s,
+                    "auc": float(auc(scores[dev], labels))}
+    waves = coords["cuda"].num_waves
+    staged_same = same_waves(torch, coords["cuda"], coords["cpu"])
+    coef = float((models["cuda"].means.cpu()
+                  - models["cpu"].means).abs().max())
+    # One model scored on both devices: the score paths alone.
+    cross = float((coords["cuda"].score(models["cpu"]).cpu()
+                   - scores["cpu"]).abs().max())
+    auc_gap = abs(out["cuda"]["auc"] - out["cpu"]["auc"])
+    if not (staged_same and coef <= PARITY_TOL and auc_gap <= PARITY_TOL
+            and cross <= SCORE_TOL):
+        failures.append(f"sparse: staged bit-equal {staged_same}, coef "
+                        f"{coef}, AUC gap {auc_gap}, score {cross}")
+    if not launches["gather"] == launches["scatter"] == waves:
+        failures.append(f"sparse: re_rows launches {launches}, {waves} "
+                        f"waves")
+    del coords, models, scores
+
+    ds_d, norm = projected_dense_dataset(np)
+    cfg = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(max_iterations=50, tolerance=1e-7),
+        regularization=RegularizationContext(RegularizationType.L2, 1.0),
+        variance_computation=VarianceComputationType.SIMPLE)
+    dense = {}
+    for dev in ("cuda", "cpu"):
+        c = RandomEffectCoordinate(
+            ds_d, "userId", "re", losses.LOGISTIC, cfg, lower_bound=2,
+            norm=norm, features_to_samples_ratio=PROJECTED_RATIO,
+            device=dev)
+        off = torch.zeros(ds_d.num_rows, dtype=torch.float32, device=dev)
+        m = c.train_model(off)
+        m = c.compute_model_variances(m, off)
+        dense[dev] = (c, m)
+    (cc, mc), (_, mh) = dense["cuda"], dense["cpu"]
+    dense_coef = float((mc.means.cpu() - mh.means).abs().max())
+    dense_var = float(((mc.variances.cpu() - mh.variances).abs()
+                       / mh.variances.abs().clamp(min=1.0)).max())
+    dense_score = float((cc.score(mh).cpu()
+                         - dense["cpu"][0].score(mh)).abs().max())
+    if not (dense_coef <= PARITY_TOL and dense_var <= PARITY_TOL
+            and dense_score <= SCORE_TOL and not cc.subspace
+            and cc.projection):
+        failures.append(f"dense projected: coef {dense_coef}, variances "
+                        f"{dense_var}, score {dense_score}")
+    emit("sparse_re_parity", card=card, rows=SPARSE_RE_PARITY_ROWS,
+         entities=SPARSE_RE_PARITY_ENTITIES, dim=SPARSE_RE_DIM,
+         devices=out, staged_bit_equal=staged_same, max_coef_gap=coef,
+         auc_gap=auc_gap, cross_score_gap=cross, tol=PARITY_TOL,
+         score_tol=SCORE_TOL, launches=launches, waves=waves,
+         dense_projected={"rows": PROJECTED_ROWS,
+                          "entities": PROJECTED_ENTITIES,
+                          "dim": PROJECTED_DIM, "ratio": PROJECTED_RATIO,
+                          "max_coef_gap": dense_coef,
+                          "max_variance_gap": dense_var,
+                          "cross_score_gap": dense_score})
+    if failures:
+        raise AssertionError("sparse_re_parity: " + "; ".join(failures))
+    return {"launches": launches, "waves": waves}
+
+
 def main() -> int:
     import torch
 
@@ -5904,6 +6408,8 @@ def main() -> int:
                           f"this script")
     resolve_device("cuda")
     train_generator = start_train_data(TRAIN_ROWS)
+    sparse_re_generator = start_sparse_re_data(SPARSE_RE_ROWS,
+                                               SPARSE_RE_ENTITIES)
     card = nvidia_smi_line()
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -5987,6 +6493,10 @@ def main() -> int:
     ds_parity = phase_down_sampling_parity(np, torch, card, parity)
     phase_glm_train(np, torch, card)
     phase_glm_gradient_step(np, torch, card)
+    torch.cuda.empty_cache()
+    sparse_re = phase_sparse_re_train(np, torch, card, sparse_re_generator)
+    torch.cuda.empty_cache()
+    sparse_re_parity = phase_sparse_re_parity(np, torch, card)
 
     main_shape = next(c for c in checks if c["n"] == 64
                       and c["cache"] == "float32")
@@ -6021,6 +6531,15 @@ def main() -> int:
             "resume_launches": resumed[key + "s"],
             "game_cli_launches": cli4["launches"][
                 "gather_rows" if key == "gather" else "scatter_rows_"],
+            "sparse_re_launches": sparse_re["launches"][key],
+            "sparse_re_waves": sparse_re["waves"],
+            "sparse_re_parity_launches": sparse_re_parity["launches"][key],
+            "sparse_re_wave": {k: sparse_re["check"][key][k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "library_ms")},
+            "sparse_re_shape": (f"B={sparse_re['check']['B']} "
+                                f"d={sparse_re['check']['d']} "
+                                f"E={sparse_re['check']['E']} (the "
+                                f"subspace table's first wave)"),
             "max_abs_err": 0.0,
             "ms": m["ms"], "plain_ms": m[plain_key],
             "plain_timing": ("graph replay" if plain_key == "plain_ms" else

@@ -2,17 +2,21 @@
 
 Port of the coordinate configurations of ``photon_ml_tpu/api/configs.py``
 for the coordinate types the port has: dense and sparse fixed effects and
-the unprojected random effect. Reference parity: photon-api
+the random effect, unprojected, projected (``projector="INDEX_MAP"``) or
+in its subspace form. Reference parity: photon-api
 ``data/FixedEffectDataConfiguration.scala``,
 ``data/RandomEffectDataConfiguration.scala`` and the per-coordinate
 optimization bundles of ``optimization/game/*Configuration.scala``.
 
 ``StreamingConfig`` routes sparse fixed effects onto the row-streamed
-path. The factored random-effect configuration is here so that the
-estimator can name the slice that ports it. The CLI mini-DSL parsers
-(``parse_kv``, ``parse_streaming_config``, ``parse_optimizer_config``)
-are the reference's; the staging, ingest and sweep configurations are
-not ported, so their parsers raise and name the slice that brings them.
+path, and ``StagingConfig`` (``game/staging.py``) tunes the projected
+random effect's staging pipeline. The factored random-effect
+configuration is here so that the estimator can name the slice that
+ports it. The CLI mini-DSL parsers (``parse_kv``,
+``parse_staging_config``, ``parse_streaming_config``,
+``parse_optimizer_config``) are the reference's; the ingest and sweep
+configurations are not ported, so their parsers raise and name the slice
+that brings them.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import dataclasses
 from typing import Optional, Union
 
 from photon_ml_torch import not_ported
+from photon_ml_torch.game.staging import StagingConfig
 from photon_ml_torch.optim.common import OptimizerConfig, OptimizerType
 from photon_ml_torch.optim.problem import (GLMOptimizationConfiguration,
                                            VarianceComputationType)
@@ -33,6 +38,7 @@ __all__ = [
     "FactoredRandomEffectDataConfiguration",
     "FixedEffectDataConfiguration",
     "RandomEffectDataConfiguration",
+    "StagingConfig",
     "StreamingConfig",
     "parse_ingest_config",
     "parse_kv",
@@ -129,9 +135,12 @@ class RandomEffectDataConfiguration:
     """Reference: RandomEffectDataConfiguration (randomEffectType,
     featureShardId, active-data bounds, projector).
 
-    Only ``projector="NONE"`` (solve at the full shard dimension) is
-    ported; the rest raises in the estimator. ``feature_dtype``
-    "bfloat16" stores the bucket blocks in bfloat16."""
+    ``projector="NONE"`` solves at the full shard dimension,
+    ``"INDEX_MAP"`` in each entity's active-column subspace (implied by a
+    ``features_to_samples_ratio`` or a sparse shard); ``"RANDOM"`` raises
+    in the estimator (slice 8). ``subspace_model`` keeps the trained table
+    as (E, A) active-column rows (None: automatic above E·d > 2²⁸).
+    ``feature_dtype`` "bfloat16" stores the bucket blocks in bfloat16."""
 
     random_effect_type: str
     feature_shard_id: str
@@ -234,10 +243,38 @@ def parse_kv(spec: str) -> dict[str, str]:
     return kv
 
 
-def parse_staging_config(spec: str):
-    """The random-effect staging pipeline's mini-DSL: not ported (the
-    projected staging pipeline is slice 6 item 6)."""
-    raise not_ported("the staging pipeline (--staging)", 6)
+def parse_staging_config(spec: str) -> StagingConfig:
+    """Parse ``key=value,...`` mini-DSL for the random-effect staging
+    pipeline (game/staging.py).
+
+    Keys: workers (pool size; default = host cores), mode
+    (thread|process), depth (max staged-but-unconsumed shard blocks),
+    shard_entities (entity lanes per staged shard), retries (bounded
+    per-shard retry budget), backoff (base seconds of the jittered
+    retry backoff), straggler (straggler deadline in seconds — exceeded
+    shards re-stage serially).
+    """
+    kv = parse_kv(spec)
+    known = {"workers", "mode", "depth", "shard_entities", "retries",
+             "backoff", "straggler"}
+    unknown = set(kv) - known
+    if unknown:
+        raise ValueError(f"unknown staging keys {sorted(unknown)}; "
+                         f"expected {sorted(known)}")
+    defaults = StagingConfig()
+    return StagingConfig(
+        workers=int(kv["workers"]) if "workers" in kv else None,
+        mode=kv.get("mode", "thread").lower(),
+        pipeline_depth=int(kv["depth"]) if "depth" in kv else None,
+        shard_entities=(int(kv["shard_entities"])
+                        if "shard_entities" in kv else None),
+        max_retries=(int(kv["retries"]) if "retries" in kv
+                     else defaults.max_retries),
+        retry_backoff_s=(float(kv["backoff"]) if "backoff" in kv
+                         else defaults.retry_backoff_s),
+        straggler_timeout_s=(float(kv["straggler"])
+                             if "straggler" in kv else None),
+    )
 
 
 def parse_ingest_config(spec: str):

@@ -10,17 +10,19 @@ Seq[(GameModel, EvaluationResults, config)]``).
 
 It builds dense and sparse fixed-effect coordinates (the hybrid hot/cold
 layout by default, as the reference does on one device, or ELL) and
-unprojected random-effect coordinates on ``device`` (``cuda`` unless the
-caller passes ``"cpu"``), where the reference takes a mesh; with
-``streaming=StreamingConfig(...)`` a sparse fixed effect becomes a
-row-streamed coordinate. ``fit(checkpoint_dir=)`` checkpoints each grid
-point's descent under ``<checkpoint_dir>/grid-<i>`` and resumes it on a
-rerun. ``trace=`` (an ``obs.Tracer``), ``ledger_dir=`` (the run ledger)
-and ``watchdog=`` (an ``obs.WatchdogConfig``) instrument each fit
-(docs/OBSERVABILITY.md). Not ported yet, each raising and naming the
-slice that ports it: the projected staging pipeline (slice 6), factored
-random effects, ``projector=RANDOM`` and gated sweeps (slice 8), and
-Avro ingestion (slice 9).
+random-effect coordinates — unprojected, projected (``projector=
+"INDEX_MAP"``, a ratio or a sparse shard) or in subspace form — on
+``device`` (``cuda`` unless the caller passes ``"cpu"``), where the
+reference takes a mesh; with ``streaming=StreamingConfig(...)`` a sparse
+fixed effect becomes a row-streamed coordinate. ``staging=`` (a
+``StagingConfig``) tunes the projected random effects' staging pipeline
+and ``staging_cache_dir=`` persists what it stages.
+``fit(checkpoint_dir=)`` checkpoints each grid point's descent under
+``<checkpoint_dir>/grid-<i>`` and resumes it on a rerun. ``trace=`` (an
+``obs.Tracer``), ``ledger_dir=`` (the run ledger) and ``watchdog=`` (an
+``obs.WatchdogConfig``) instrument each fit (docs/OBSERVABILITY.md). Not ported yet, each raising and naming the
+slice that ports it: factored random effects, ``projector=RANDOM`` and
+gated sweeps (slice 8), and Avro ingestion (slice 9).
 """
 
 from __future__ import annotations
@@ -92,9 +94,6 @@ class GameEstimator:
         watchdog=None,
     ):
         for value, what, slice_no in (
-                (staging, "staging (the projected staging pipeline)", 6),
-                (staging_cache_dir, "staging_cache_dir (the staging cache)",
-                 6),
                 (sweep, "sweep (dirty-gated incremental sweeps)", 8),
                 (ingest, "ingest (parallel Avro ingestion)", 9)):
             if value is not None:
@@ -106,6 +105,11 @@ class GameEstimator:
         self.descent_iterations = descent_iterations
         self.validation_evaluators = validation_evaluators or []
         self.normalization = normalization or {}
+        # Disk cache of the projected random effects' staging products
+        # (game/staging_cache.py) and the staging pipeline's knobs
+        # (game/staging.StagingConfig), shared by every such coordinate.
+        self.staging_cache_dir = staging_cache_dir
+        self.staging = staging
         # A StreamingConfig routes sparse fixed-effect coordinates onto
         # the row-streamed path.
         self.streaming = streaming
@@ -196,7 +200,9 @@ class GameEstimator:
                     projection=data.projector.upper() == "INDEX_MAP",
                     features_to_samples_ratio=data.features_to_samples_ratio,
                     subspace_model=data.subspace_model,
+                    staging_cache_dir=self.staging_cache_dir,
                     feature_dtype=data.feature_dtype,
+                    staging=self.staging,
                     device=self.device)
             elif isinstance(data, FactoredRandomEffectDataConfiguration):
                 raise not_ported("the factored random effect", 8)
@@ -397,6 +403,13 @@ class GameEstimator:
                         evaluation.metrics if evaluation else "")
             results.append(GameResult(model=model, evaluation=evaluation,
                                       configs=opt_configs, history=history))
+        # A staged shard reaches the fit before the staging cache has it:
+        # return once every write has landed, so a process that ends with
+        # the fit (game_train) leaves a complete cache entry.
+        for coord in (base_coords or {}).values():
+            wait = getattr(coord, "wait_staged", None)
+            if wait is not None:
+                wait()
         return results
 
     def _finalize_variances(self, model: GameModel, coords,

@@ -22,9 +22,11 @@ Options of the reference that the port does not have yet raise
 naming the slice of the port that brings them: hyperparameter tuning,
 ``--distributed``, ``--fabric``, Avro input, ``--date-range`` and the
 ingest options (slice 9); ``--model-output-format AVRO|BOTH`` and
-``--fault-plan`` (slice 10); ``--sweep`` and ``type=factored`` (slice
-8); ``--staging``, ``--staging-cache-dir`` and the projected random
-effect (slice 6). The reference's persistent XLA compilation cache has no
+``--fault-plan`` (slice 10); ``--sweep``, ``type=factored`` and
+``projector=RANDOM`` (slice 8). The projected and subspace random effect
+(``projector=INDEX_MAP``, ``subspace=``, ``features_to_samples_ratio=``)
+and its staging pipeline (``--staging``, ``--staging-cache-dir``) are
+ported. The reference's persistent XLA compilation cache has no
 counterpart in torch and is left out.
 """
 
@@ -43,6 +45,7 @@ from photon_ml_torch.api.configs import (CoordinateConfiguration,
                                          FixedEffectDataConfiguration,
                                          RandomEffectDataConfiguration,
                                          parse_kv, parse_optimizer_config,
+                                         parse_staging_config,
                                          parse_streaming_config)
 from photon_ml_torch.api.estimator import GameEstimator
 from photon_ml_torch.data.io import load_game_dataset
@@ -77,6 +80,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coordinate", action="append", required=True,
                    help="coordinate spec (repeatable): name=,type=fixed|"
                         "random,shard=[,re=,min_samples=,max_samples=,"
+                        "projector=NONE|INDEX_MAP,"
+                        "features_to_samples_ratio=,"
+                        "subspace=auto|true|false (keep the trained "
+                        "random-effect model in per-entity subspace form),"
                         "hybrid=auto|true|false,dtype=float32|bfloat16]")
     p.add_argument("--opt-config", action="append", default=[],
                    help="'<coordinate>:<optimizer mini-DSL>' (repeatable)")
@@ -140,11 +147,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the host-level fabric for streamed fits: not "
                         "ported (slice 9)")
     p.add_argument("--staging-cache-dir",
-                   help="the projected staging cache: not ported "
-                        "(slice 6)")
+                   help="persist projected random-effect staging artifacts "
+                        "here, keyed by dataset content digest — a re-run "
+                        "on the same data memory-maps the staged blocks "
+                        "(shard-granular: a killed run resumes with "
+                        "partial credit) instead of re-paying the "
+                        "projection pass")
     p.add_argument("--staging",
-                   help="parallel staging pipeline knobs: not ported "
-                        "(slice 6)")
+                   help="parallel staging pipeline knobs, "
+                        "'workers=8,mode=thread|process,depth=10,"
+                        "shard_entities=65536,retries=2,backoff=0.05,"
+                        "straggler=30'; default: one worker per host "
+                        "core, thread mode, depth=workers+2")
     p.add_argument("--ingest",
                    help="parallel Avro ingestion knobs: not ported "
                         "(slice 9)")
@@ -222,10 +236,7 @@ def check_ported(args) -> None:
              "the Avro ingest cache", 9),
             ("--fault-plan", args.fault_plan, "fault injection", 10),
             ("--sweep", args.sweep is not None,
-             "dirty-gated incremental sweeps", 8),
-            ("--staging", args.staging, "the staging pipeline", 6),
-            ("--staging-cache-dir", args.staging_cache_dir,
-             "the staging cache", 6)):
+             "dirty-gated incremental sweeps", 8)):
         if value:
             raise not_ported(f"{flag} ({what})", slice_no)
     if args.model_output_format != "NPZ":
@@ -236,17 +247,8 @@ def check_ported(args) -> None:
         name, kv = parse_coordinate(spec)
         if kv["type"] == "factored":
             raise not_ported(f"coordinate {name!r}: type=factored", 8)
-        projector = kv.get("projector", "NONE").upper()
-        if projector == "RANDOM":
+        if kv.get("projector", "NONE").upper() == "RANDOM":
             raise not_ported(f"coordinate {name!r}: projector=RANDOM", 8)
-        if projector != "NONE":
-            raise not_ported(
-                f"coordinate {name!r}: projector={projector} (the "
-                f"projected random effect)", 6)
-        if (kv.get("subspace", "auto").lower() == "true"
-                or "features_to_samples_ratio" in kv):
-            raise not_ported(f"coordinate {name!r}: the subspace random "
-                             f"effect", 6)
         if kv.get("feature_sharded", "false").lower() == "true":
             raise not_ported(f"coordinate {name!r}: feature_sharded=true",
                              9)
@@ -346,6 +348,12 @@ def _coordinate_data(kv: dict):
             active_data_lower_bound=int(kv.get("min_samples", 1)),
             active_data_upper_bound=(int(kv["max_samples"])
                                      if "max_samples" in kv else None),
+            projector=kv.get("projector", "NONE").upper(),
+            projected_dimension=(int(kv["projected_dim"])
+                                 if "projected_dim" in kv else None),
+            features_to_samples_ratio=(
+                float(kv["features_to_samples_ratio"])
+                if "features_to_samples_ratio" in kv else None),
             subspace_model=None if sub_kv == "auto" else sub_kv == "true",
             feature_dtype=kv.get("dtype", "float32"))
     raise ValueError(f"unknown coordinate type {kv['type']!r}")
@@ -413,6 +421,9 @@ def _run(args) -> dict:
         device=device,
         descent_iterations=args.iterations,
         validation_evaluators=evaluators,
+        staging_cache_dir=args.staging_cache_dir,
+        staging=(parse_staging_config(args.staging)
+                 if args.staging else None),
         streaming=(parse_streaming_config(args.streaming)
                    if args.streaming is not None else None))
 

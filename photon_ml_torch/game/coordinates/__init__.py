@@ -7,7 +7,9 @@ fit over the whole dataset, over a dense or an ELL sparse shard) and
 row-streamed sparse fixed effect.
 
 Residency: each coordinate stages its data on its device once, in
-``__init__``; per coordinate-descent step the only new inputs are the
+``__init__`` (a projected random effect through its staging pipeline,
+whose shards the first fit puts on the device as they arrive); per
+coordinate-descent step the only new inputs are the
 (n,) offsets and the warm start. Both expose ``train_model(offsets,
 initial)``, ``score(model)``, ``compute_model_variances`` and
 ``initial_model``, mirroring the reference Coordinate contract (offsets

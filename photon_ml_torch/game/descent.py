@@ -161,7 +161,12 @@ def run(task: TaskType, coordinates: dict[str, object],
     for cid in seq:
         coord = coordinates[cid]
         if initial_models and cid in initial_models:
-            models[cid] = initial_models[cid]
+            # A warm start of another random-effect layout (dense ↔
+            # subspace) converts here, so scoring and training see the
+            # coordinate's own model type.
+            adapt = getattr(coord, "adapt_initial", None)
+            models[cid] = (adapt(initial_models[cid]) if adapt
+                           else initial_models[cid])
         else:
             models[cid] = coord.initial_model()
         s = coord.score(models[cid])

@@ -122,6 +122,77 @@ def dense_rows_from_subspace(cols: np.ndarray, means: np.ndarray,
     return W
 
 
+def sort_subspace_rows(cols: np.ndarray, *tables: Optional[np.ndarray]):
+    """Canonicalize subspace rows: sort each row by column id with padding
+    (-1) last, permuting the parallel coefficient tables identically.
+
+    This IS the SubspaceRandomEffectModel layout invariant — ``score()``'s
+    per-row searchsorted requires it — shared by the coordinate's staging
+    and, in the reference, its Avro loader. Returns (cols_sorted, order,
+    *tables_sorted); ``order`` is the sorted←unsorted permutation; None
+    tables pass through.
+    """
+    order = np.argsort(
+        np.where(cols < 0, np.iinfo(np.int32).max, cols),
+        axis=1, kind="stable").astype(np.int32)
+    out = [np.take_along_axis(cols, order, axis=1), order]
+    for t in tables:
+        out.append(None if t is None
+                   else np.take_along_axis(np.asarray(t), order, axis=1))
+    return tuple(out)
+
+
+def _subspace_positions(cols: np.ndarray, num_features: int,
+                        entity_ids: np.ndarray,
+                        indices: np.ndarray,
+                        block_rows: int = 1 << 18) -> np.ndarray:
+    """Map data nonzeros into per-entity subspace slots.
+
+    ``cols`` is the model's (E, A) active-column table (-1 padding);
+    ``indices`` the dataset's (n, k) ELL column ids (sentinel
+    ``num_features`` for padding). Returns (n, k) FLAT indices into
+    ``cols``-shaped tables, with misses (column inactive for that entity,
+    entity beyond the table, ELL padding) mapped to E*A (one past the end).
+
+    The reference's positions, found another way: instead of one
+    searchsorted of every nonzero's (entity, column) key among all E·A
+    keys (a cache miss at each of ~24 steps), each row compares its k
+    columns with its entity's A table columns (A ≤ 64), in blocks of rows
+    on a thread pool (numpy's compares release the GIL). Where an
+    entity's row holds a column twice, the first slot wins, as the
+    reference's stable sort makes it. The (E, d) dense table this
+    replaces never exists.
+    """
+    import concurrent.futures as cf
+    import os
+
+    cols = np.asarray(cols)
+    E, A = cols.shape
+    ids = np.asarray(entity_ids, np.int64)
+    idx = np.asarray(indices)
+    out = np.full(idx.shape, E * A, np.int64)
+    if not (cols >= 0).any():  # no active columns anywhere: all miss
+        return out
+    # Padding slots never match: every real column is < num_features.
+    table = np.where(cols < 0, np.int64(num_features) + 1,
+                     cols).astype(np.int64)
+
+    def block(lo: int) -> None:
+        rows = slice(lo, lo + block_rows)
+        e = np.minimum(ids[rows], E - 1)
+        q = np.minimum(idx[rows].astype(np.int64), num_features)
+        eq = table[e][:, None, :] == q[:, :, None]  # (rows, k, A)
+        hit = eq.any(axis=2) & (ids[rows] < E)[:, None]
+        out[rows] = np.where(hit, e[:, None] * A + eq.argmax(axis=2),
+                             E * A)
+
+    starts = range(0, ids.shape[0], block_rows)
+    with cf.ThreadPoolExecutor(max(1, min(len(starts),
+                                          os.cpu_count() or 1))) as pool:
+        list(pool.map(block, starts))
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class SubspaceRandomEffectModel:
     """Per-entity models kept in their active-column subspaces.
@@ -157,6 +228,26 @@ class SubspaceRandomEffectModel:
         return dense_rows_from_subspace(
             self.cols.cpu().numpy()[ids], self.means.cpu().numpy()[ids],
             self.num_features)
+
+    def to_random_effect_model(self) -> RandomEffectModel:
+        """Materialize the dense (E, d) table (small-d interop only)."""
+        E, A = self.cols.shape
+        cols = self.cols.long()
+        safe_c = torch.where(cols >= 0, cols,
+                             self.num_features).reshape(-1)
+        rows = torch.arange(E, device=cols.device).repeat_interleave(A)
+
+        def scatter(tab):
+            if tab is None:
+                return None
+            W = torch.zeros((E, self.num_features + 1), dtype=torch.float32,
+                            device=cols.device)
+            W[rows, safe_c] = tab.to(cols.device, torch.float32).reshape(-1)
+            return W[:, :self.num_features].contiguous()
+
+        return RandomEffectModel(
+            re_type=self.re_type, shard_id=self.shard_id,
+            means=scatter(self.means), variances=scatter(self.variances))
 
     def score(self, dataset: GameDataset) -> Tensor:
         """Score without materializing (E, d): a row's columns map into

@@ -1,0 +1,904 @@
+"""Parallel, pipelined host staging for projected random effects.
+
+Port of ``photon_ml_tpu/game/staging.py``: the same plan, tasks, ladder
+and bytes. The per-entity projection pass is the dominant host cost of a
+cold fit at the 10M-row / 1M-entity flagship, while the lane-batched
+fits it feeds are short; so the host-side preparation is partitioned and
+OVERLAPPED with the card's fits instead of staging everything first
+(the structure Snap ML, arXiv:1803.06333, and "Large-Scale Stochastic
+Learning using GPUs", arXiv:1702.07005, use).
+
+Three ideas, all exact (staged bytes identical to the serial path):
+
+1. **Entity-axis sharding.** Every per-bucket staging computation
+   (triplet sort + segment pass, active-pair extraction, the Pearson cap,
+   the projected feature scatter, the bucket-layout label/weight gathers)
+   is per-LANE math — sorted runs never span lanes. So a bucket splits
+   into lane slices ("shards") that workers process independently; the
+   concatenation of shard outputs is bit-identical to the whole-bucket
+   build. The one cross-lane quantity, the bucket's projected width
+   ``d_active`` (pow-2 of the max per-lane active count), is a max-reduce
+   over shard maxima — phase A (pair extraction) runs per shard, the
+   width reduces per bucket, then phase B (column-map fill + feature
+   scatter) runs per shard again.
+
+2. **Worker pool.** Shard tasks run on a thread pool by default — the
+   dominant kernels (np.sort/argsort over the packed lane-col keys, the
+   reduceat segment sums) release the GIL — with a process-pool fallback
+   (``StagingConfig.mode="process"``) for workloads where GIL-holding
+   fancy-indexing dominates. A process worker runs numpy only: it never
+   touches the card nor builds a tensor. Either way the merged output is
+   identical: scheduling never changes content, only timing.
+
+3. **Bounded pipelined handoff.** Shards are handed to the consumer (the
+   coordinate's fit stream — ``RandomEffectCoordinate._iter_waves``) in
+   plan order as they finish, through a depth-bounded producer/consumer
+   seam: the first per-entity fits launch while later shards are still
+   projecting, and at most ``pipeline_depth`` staged-but-unconsumed shard
+   blocks exist at once.
+
+The staging cache (``game/staging_cache.py``) is shard-granular: each
+shard's arrays are written (atomically) the moment the shard is staged,
+so a killed run resumes with partial credit and a corrupted shard
+invalidates only itself. A shard is handed to the consumer BEFORE it is
+written; ``join()`` is the point after which every write has landed, so
+a reader of the cache directory calls it first.
+
+Threading notes: the scheduler is a daemon thread that never runs inside
+the pool; pool tasks never block on futures or semaphores — so there is
+no lost-wakeup/deadlock topology. If the consumer never drains the
+stream, staging stalls at the depth bound and the daemon scheduler dies
+with the process.
+
+Failure contract: every shard task is wrapped in a degradation ladder —
+bounded retry with deterministic jittered backoff, then (for a crashed
+worker that broke the pool) QUARANTINE of the pool and serial re-staging
+inline on the scheduler thread. Content never depends on which rung
+produced it, so recovery is bit-identical. A shard that exceeds
+``StagingConfig.straggler_timeout_s`` is re-staged serially instead of
+stalling the consumer (the late pool result is discarded); every retry /
+straggler emits an event and counts in ``ProjectionStager.fault_stats``.
+Not ported: the reference's fault-injection sites (``staging.phase_a``,
+``staging.phase_b``), which come with the fault injector in slice 10;
+tests drive the ladder by patching ``_phase_b``.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import dataclasses
+import functools
+import logging
+import os
+import queue
+import random
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+
+from photon_ml_torch.data.game_data import SparseShard
+from photon_ml_torch.game import buckets as bkt
+from photon_ml_torch.game import projector as prj
+from photon_ml_torch.game import staging_cache
+from photon_ml_torch.utils import events as ev_mod
+from photon_ml_torch.utils import workers as pools
+
+logger = logging.getLogger("photon_ml_torch.game")
+
+# Max entity lanes per staged shard AND per lane-batched random-effect
+# wave (random_effect.py imports this): the solver's state and line-search
+# temporaries scale with lanes. 64k lanes keeps them ~100 MB at typical
+# widths while staying large enough to fill the card — and gives the
+# 10M-row/1M-entity flagship ~16 shards, enough granularity for an
+# 8-worker pool.
+LANE_CHUNK = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class StagingConfig:
+    """Knobs of the parallel staging pipeline.
+
+    ``workers``: pool size (None → os.cpu_count()). ``mode``: "thread"
+    (default; numpy's sort/segment kernels release the GIL) or "process"
+    (fallback when GIL-holding gathers dominate; ships arrays by pickle to
+    spawned workers that handle numpy only and never touch the card).
+    ``pipeline_depth``: max staged-but-unconsumed shard blocks (None →
+    workers + 2). ``shard_entities``: lanes per shard (None →
+    LANE_CHUNK; rounded up to the bucketing's entity pad multiple).
+
+    Resilience knobs: ``max_retries`` bounds the per-shard retry ladder
+    (0 = fail on first error);
+    ``retry_backoff_s`` is the base of the exponential jittered backoff
+    between attempts (jitter is deterministic in (seed, shard, attempt));
+    ``straggler_timeout_s`` re-stages a shard serially when its pool task
+    exceeds the deadline instead of stalling the consumer (None = wait
+    forever, the pre-hardening behavior).
+    """
+
+    workers: Optional[int] = None
+    mode: str = "thread"
+    pipeline_depth: Optional[int] = None
+    shard_entities: Optional[int] = None
+    max_retries: int = 2
+    retry_backoff_s: float = 0.05
+    straggler_timeout_s: Optional[float] = None
+    retry_jitter_seed: int = 0
+
+    def __post_init__(self):
+        if self.mode not in ("thread", "process"):
+            raise ValueError(
+                f"staging mode must be 'thread' or 'process', "
+                f"got {self.mode!r}")
+        for name in ("workers", "pipeline_depth", "shard_entities"):
+            v = getattr(self, name)
+            if v is not None and v < 1:
+                raise ValueError(f"staging {name} must be >= 1, got {v}")
+        if self.max_retries < 0:
+            raise ValueError(
+                f"staging max_retries must be >= 0, got {self.max_retries}")
+        if self.retry_backoff_s < 0:
+            raise ValueError(f"staging retry_backoff_s must be >= 0, "
+                             f"got {self.retry_backoff_s}")
+        if (self.straggler_timeout_s is not None
+                and self.straggler_timeout_s <= 0):
+            raise ValueError(f"staging straggler_timeout_s must be > 0, "
+                             f"got {self.straggler_timeout_s}")
+
+    def resolved_workers(self) -> int:
+        return max(1, self.workers or os.cpu_count() or 1)
+
+    def resolved_depth(self) -> int:
+        return self.pipeline_depth or self.resolved_workers() + 2
+
+
+def resolved_shard_entities(config: StagingConfig, pad: int) -> int:
+    size = config.shard_entities or LANE_CHUNK
+    return ((size + pad - 1) // pad) * pad
+
+
+def plan_shards(bucketing, shard_entities: Optional[int] = None,
+                pad: Optional[int] = None) -> list[tuple[int, int, int]]:
+    """(bucket, lane_lo, lane_hi) shard plan in consumption order.
+
+    Bucket sizes are pad multiples and the shard size is rounded up to a
+    pad multiple, so every slice (tails included) stays a pad multiple,
+    as the reference's mesh sharding of staged blocks needs.
+    """
+    pad = pad or bucketing.entity_pad_multiple
+    size = resolved_shard_entities(
+        StagingConfig(shard_entities=shard_entities), pad)
+    plan = []
+    for bi, b in enumerate(bucketing.buckets):
+        for lo in range(0, b.num_entities, size):
+            plan.append((bi, lo, min(lo + size, b.num_entities)))
+    return plan
+
+
+@dataclasses.dataclass
+class ShardTask:
+    """Everything one shard's phase A/B tasks need, self-contained so
+    process-mode workers get it by pickle (lanes LOCAL to the slice)."""
+
+    index: int
+    bucket: int
+    lo: int
+    hi: int
+    entity_rows: np.ndarray  # (E_loc,)
+    example_idx: np.ndarray  # (E_loc, cap) int64 global example ids
+    counts: np.ndarray
+    t_cols: np.ndarray  # int64 triplet columns
+    t_vals: np.ndarray
+    t_lanes: np.ndarray  # int64 LOCAL lanes
+    t_cappos: np.ndarray  # int32 per-triplet slot within the lane cap
+    t_y: Optional[np.ndarray] = None  # float64 labels per triplet (ratio)
+    yb: Optional[np.ndarray] = None  # (E_loc, cap) float64 labels (ratio)
+    y0: float = 0.0
+
+
+def split_shard_triplets(
+    bucketing,
+    plan: list[tuple[int, int, int]],
+    X,
+    coo=None,
+    labels: Optional[np.ndarray] = None,
+) -> list[ShardTask]:
+    """Build every shard's task in ONE global pass over the nonzeros.
+
+    Like projector.all_bucket_triplets but shard-granular: one
+    row → (shard, local lane, cap slot) map, one nnz-sized gather, and
+    one stable radix argsort of the int16 shard ids groups the triplets
+    into contiguous per-shard slices (stable ⇒ original triplet order
+    within each shard, the order the whole-bucket build sees).
+    """
+    n_rows, _ = prj._shard_shape(X)
+    if coo is None:
+        coo = prj.shard_coo(X)
+    rows_nz, cols_nz, vals_nz = coo
+    if len(plan) >= 2 ** 15:
+        raise ValueError(f"{len(plan)} shards overflow the int16 map; "
+                         "raise shard_entities")
+    shard_of = np.full(n_rows, -1, np.int16)
+    lane_local = np.full(n_rows, -1, np.int32)
+    cappos_of = np.zeros(n_rows, np.int32)
+    for si, (bi, lo, hi) in enumerate(plan):
+        ex = bucketing.buckets[bi].example_idx[lo:hi]
+        kept = ex >= 0
+        rk = ex[kept]
+        shard_of[rk] = si
+        lane_local[rk] = np.broadcast_to(
+            np.arange(ex.shape[0], dtype=np.int32)[:, None], ex.shape)[kept]
+        cappos_of[rk] = np.broadcast_to(
+            np.arange(ex.shape[1], dtype=np.int32)[None, :], ex.shape)[kept]
+    ts = shard_of[rows_nz]  # the one nnz-sized gather
+    order = np.argsort(ts, kind="stable")  # int16 → radix, O(nnz)
+    ts_s = ts[order]
+    sids = np.arange(len(plan), dtype=ts_s.dtype)
+    starts = np.searchsorted(ts_s, sids, side="left")
+    ends = np.searchsorted(ts_s, sids, side="right")
+    rows_s = rows_nz[order]
+    cols_s = cols_nz[order].astype(np.int64)
+    vals_s = vals_nz[order]
+    lanes_s = lane_local[rows_s].astype(np.int64)
+    cappos_s = cappos_of[rows_s]
+    y64 = None
+    y_s = None
+    y0 = 0.0
+    if labels is not None:
+        y64 = np.asarray(labels, np.float64)
+        y_s = y64[rows_s]
+        y0 = float(y64[0]) if y64.size else 0.0
+    tasks = []
+    for si, (bi, lo, hi) in enumerate(plan):
+        b = bucketing.buckets[bi]
+        sl = slice(int(starts[si]), int(ends[si]))
+        yb = None
+        if y64 is not None:
+            ex = b.example_idx[lo:hi]
+            yb = y64[np.maximum(ex, 0)]
+            yb[ex < 0] = 0.0
+        tasks.append(ShardTask(
+            index=si, bucket=bi, lo=lo, hi=hi,
+            entity_rows=b.entity_rows[lo:hi],
+            example_idx=b.example_idx[lo:hi],
+            counts=b.counts[lo:hi],
+            t_cols=cols_s[sl], t_vals=vals_s[sl], t_lanes=lanes_s[sl],
+            t_cappos=cappos_s[sl],
+            t_y=None if y_s is None else y_s[sl], yb=yb, y0=y0))
+    return tasks
+
+
+# ------------------------------------------------------------- pool tasks
+#
+# Module-level pure functions so the process pool can pickle them. Big
+# read-only context (response/weights/norm arrays/dense X) travels once
+# per worker through the pool initializer (utils/workers.py — shared with
+# the ingestion pipeline) instead of once per task.
+
+
+def _retry_delay(base: float, attempt: int, seed: int, index: int) -> float:
+    """Exponential backoff with DETERMINISTIC jitter: attempt k waits
+    ``base * 2^(k-1) * uniform[0.5, 1.5)`` where the uniform draw is
+    seeded by (seed, shard, attempt) — chaos tests replay identically."""
+    r = random.Random(f"{seed}|{index}|{attempt}").random()
+    return base * (2.0 ** (attempt - 1)) * (0.5 + r)
+
+
+def _phase_a(task: ShardTask, d: int, intercept_index: Optional[int],
+             ratio: Optional[float]):
+    """Unique active (lane, col) pairs of one shard + the lane-count max
+    that feeds the bucket's d_active reduce."""
+    live = np.flatnonzero(np.asarray(task.entity_rows) >= 0).astype(
+        np.int64)
+    u_lane, u_col = prj.active_pairs(
+        task.entity_rows.shape[0], d, intercept_index, live,
+        task.t_cols, task.t_vals, task.t_lanes,
+        ratio=ratio, t_y=task.t_y, y0=task.y0, yb=task.yb,
+        kept=task.example_idx >= 0)
+    counts = prj.active_lane_counts(u_lane, task.entity_rows.shape[0])
+    return u_lane, u_col, int(counts.max()) if counts.size else 0
+
+
+def _phase_b(task: ShardTask, cols: np.ndarray, d_active: int,
+             ctx: Optional[dict] = None):
+    """One shard's staged tuple, laid out exactly as the serial
+    coordinate staging: (Xb, yb, wb, ex, rows[, cols][, f_p][, s_p])."""
+    if ctx is None:
+        ctx = pools.worker_ctx()
+    sub = bkt.EntityBucket(entity_rows=task.entity_rows,
+                           example_idx=task.example_idx,
+                           counts=task.counts)
+    proj = prj.BucketProjection(cols=cols, d_active=int(d_active))
+    X = ctx.get("dense_X")
+    if X is not None:
+        Xb = prj.gather_projected_features(sub, proj, X)
+    else:
+        trips = prj.BucketTriplets(
+            rows=np.zeros(0, np.int32), cols=task.t_cols,
+            vals=task.t_vals, lanes=task.t_lanes, cappos=task.t_cappos)
+        E_loc, cap = task.example_idx.shape
+        Xb = prj.scatter_projected(E_loc, cap, ctx["d"], proj, trips)
+    (yb,) = bkt.gather_bucket_arrays(sub, ctx["response"])
+    wb = bkt.bucket_weights(sub, ctx["weights"])
+    ex32 = task.example_idx.astype(np.int32)
+    out = [Xb, yb, wb, ex32, task.entity_rows, cols]
+    factors, shifts = ctx.get("factors"), ctx.get("shifts")
+    if factors is not None or shifts is not None:
+        f_p, s_p = prj.project_norm_arrays(proj, factors, shifts)
+        if factors is not None:
+            out.append(f_p)
+        if shifts is not None:
+            out.append(s_p)
+    return tuple(out)
+
+
+def _make_pool(mode: str, workers: int, ctx: dict):
+    # Shared pool plumbing (utils/workers.py): spawn-context process pools
+    # with the ctx initializer, thread pools otherwise.
+    return pools.make_pool(mode, workers, ctx,
+                           thread_name_prefix="pml-staging")
+
+
+# ------------------------------------------------------------ the stager
+
+
+class ProjectionStager:
+    """Background staging pipeline for one projected RE coordinate.
+
+    Construction is cheap: the heavy work (triplet extraction, shard
+    split, phase A/B tasks) runs on a daemon scheduler thread + worker
+    pool. Consumers:
+
+    - ``shards()`` yields staged host tuples in plan order as they
+      finish (blocking), releasing the depth bound as it goes — the
+      coordinate's fit stream.
+    - ``cols_list()`` blocks until every shard's column map exists
+      (phase A of all buckets) — the subspace-model table build.
+    - ``set_subspace(dict)`` hands the subspace join arrays over for the
+      cache entry's completion record.
+    """
+
+    def __init__(
+        self,
+        *,
+        bucketing,
+        X,
+        response: np.ndarray,
+        weights: np.ndarray,
+        intercept_index: Optional[int],
+        features_to_samples_ratio: Optional[float] = None,
+        factors: Optional[np.ndarray] = None,
+        shifts: Optional[np.ndarray] = None,
+        config: Optional[StagingConfig] = None,
+        cache_dir: Optional[str] = None,
+        cache_key: Optional[str] = None,
+        expect_subspace: bool = False,
+        label: str = "",
+        min_dim: int = 8,
+        emitter: Optional[ev_mod.EventEmitter] = None,
+    ):
+        self.config = config or StagingConfig()
+        self._bucketing = bucketing
+        self._X = X
+        self._is_sparse = isinstance(X, SparseShard)
+        self._d = prj._shard_shape(X)[1]
+        self._response = np.asarray(response)
+        self._weights = np.asarray(weights)
+        self._ii = intercept_index
+        self._ratio = features_to_samples_ratio
+        self._factors = factors
+        self._shifts = shifts
+        self._min_dim = min_dim
+        self._cache_dir = cache_dir if cache_key else None
+        self._cache_key = cache_key
+        self._label = label
+        self._emitter = emitter or ev_mod.default_emitter
+        self._arity = 6 + (factors is not None) + (shifts is not None)
+
+        pad = bucketing.entity_pad_multiple
+        self.plan = plan_shards(bucketing,
+                                self.config.shard_entities, pad)
+        self.num_shards = len(self.plan)
+        self._futures = [cf.Future() for _ in range(self.num_shards)]
+        self._cols: list[Optional[np.ndarray]] = [None] * self.num_shards
+        self._cols_ready = threading.Event()
+        self._error: Optional[BaseException] = None
+        self._sub: Optional[dict] = None
+        self._sub_expected = expect_subspace
+        self._state_lock = threading.Lock()
+        self._done_count = 0
+        self._finalized = False
+        self._complete = threading.Event()  # scheduler fully retired
+        self._t0 = time.monotonic()
+        # Degradation-ladder bookkeeping. Writes happen on the scheduler
+        # thread (completion callbacks only ENQUEUE failures); tests read
+        # after join(), which publishes via self._complete.
+        self._quarantined = False
+        # Shards claimed by exactly one producer (pool callback, retry,
+        # or straggler restage) — the loser of any race discards.
+        self._claimed: set[int] = set()
+        self._claim_lock = threading.Lock()
+        self.fault_stats = {"retries": 0, "serial_restages": 0,
+                            "stragglers": 0, "quarantined": False}
+
+        # Probe the shard-granular cache: valid shards skip phases A+B
+        # entirely (their column map rides in the cached tuple).
+        self._cached: dict[int, tuple] = {}
+        if self._cache_dir:
+            for i, (bi, lo, hi) in enumerate(self.plan):
+                t = staging_cache.load_shard(self._cache_dir,
+                                             self._cache_key, i)
+                if t is not None and self._valid_shard(t, bi, lo, hi):
+                    self._cached[i] = t
+        self._emitter.emit(ev_mod.StagingStart(
+            label=label, num_shards=self.num_shards,
+            workers=self.config.resolved_workers(), mode=self.config.mode,
+            cached_shards=len(self._cached)))
+        for i, t in self._cached.items():
+            self._cols[i] = np.asarray(t[5])
+            self._futures[i].set_result(("cache", t))
+            self._emitter.emit(ev_mod.StagingShard(
+                label=label, index=i, bucket=self.plan[i][0],
+                entities=self.plan[i][2] - self.plan[i][1],
+                seconds=0.0, source="cache"))
+            self._shard_done()
+        if len(self._cached) == self.num_shards:
+            self._cols_ready.set()
+            self._complete.set()
+            self._thread = None
+        else:
+            self._sem = threading.Semaphore(self.config.resolved_depth())
+            self._thread = threading.Thread(
+                target=self._run, daemon=True,
+                name=f"pml-staging-sched[{label}]")
+            self._thread.start()
+
+    # -- cache helpers ----------------------------------------------------
+
+    def _valid_shard(self, t, bi, lo, hi) -> bool:
+        b = self._bucketing.buckets[bi]
+        return (len(t) == self._arity
+                and t[0].ndim == 3
+                and all(a.shape[0] == hi - lo for a in t)
+                and t[0].shape[1] == b.capacity
+                and t[5].shape[1] == t[0].shape[2])
+
+    def cached_subspace(self) -> Optional[dict]:
+        """The completion-record subspace arrays of a COMPLETE cache
+        entry (None when absent/partial/invalid)."""
+        if not self._cache_dir:
+            return None
+        return staging_cache.load_subspace(self._cache_dir, self._cache_key,
+                                           expected_shards=self.num_shards)
+
+    def set_subspace(self, sub: dict) -> None:
+        """Record the coordinate's subspace join arrays so the cache
+        entry can be finalized once every shard is written."""
+        with self._state_lock:
+            self._sub = dict(sub)
+        self._maybe_finalize()
+
+    # -- consumer API -----------------------------------------------------
+
+    def shards(self):
+        """Yield staged host tuples in plan order (blocking); the depth
+        bound is released as the consumer takes each staged shard."""
+        for i in range(self.num_shards):
+            src, t = self._futures[i].result()
+            try:
+                yield t
+            finally:
+                if src == "staged":
+                    self._sem.release()
+
+    def cols_list(self) -> list[np.ndarray]:
+        """Per-shard (E_loc, d_active) column maps, blocking until phase
+        A (or the cache) has produced all of them."""
+        self._cols_ready.wait()
+        if self._error is not None:
+            raise self._error
+        return list(self._cols)  # type: ignore[arg-type]
+
+    # -- scheduler --------------------------------------------------------
+
+    def _run(self):
+        try:
+            self._stage_missing()
+        except BaseException as e:  # propagate to every waiter
+            # Single-writer seam: _error is written only here, before
+            # _cols_ready.set(); Event.set() publishes it (happens-before)
+            # to the cols_list() reader.
+            self._error = e
+            self._cols_ready.set()
+            for f in self._futures:
+                if not f.done():
+                    f.set_exception(e)
+        finally:
+            self._complete.set()
+
+    def join(self) -> None:
+        """Block until the pipeline has fully retired (every shard
+        produced AND its cache write finished) — the deterministic
+        sync point for warm-restart tests and benchmarks; consumers
+        that only need the data use shards()/cols_list()."""
+        self._complete.wait()
+
+    def _stage_missing(self):
+        workers = self.config.resolved_workers()
+        ctx = {
+            "response": self._response,
+            "weights": self._weights,
+            "factors": self._factors,
+            "shifts": self._shifts,
+            "d": self._d,
+            "dense_X": None if self._is_sparse else np.asarray(self._X),
+        }
+        labels = (self._response if self._ratio is not None else None)
+        tasks = split_shard_triplets(self._bucketing, self.plan, self._X,
+                                     labels=labels)
+        missing = [i for i in range(self.num_shards)
+                   if i not in self._cached]
+        is_process = self.config.mode == "process"
+        if is_process:
+            pool_a = pool_b = _make_pool("process", workers, ctx)
+        else:
+            # Two pools so phase-B tasks never queue behind the FIFO tail
+            # of phase-A tasks: the first staged shard reaches the
+            # consumer while later buckets are still in their sort pass.
+            pool_a = _make_pool("thread", workers, ctx)
+            pool_b = _make_pool("thread", workers, ctx)
+        try:
+            a_futs = {i: self._submit(pool_a, _phase_a,
+                                      (tasks[i], self._d, self._ii,
+                                       self._ratio), i)
+                      for i in missing}
+            # Per-bucket width reduce + column-map fill (cheap, in this
+            # thread), publishing cols for cols_list() BEFORE any
+            # depth-bounded phase-B submission can stall on a consumer
+            # that hasn't started training yet.
+            by_bucket: dict[int, list[int]] = {}
+            for i, (bi, lo, hi) in enumerate(self.plan):
+                by_bucket.setdefault(bi, []).append(i)
+            for bi, shard_ids in by_bucket.items():
+                pairs: dict[int, tuple] = {}
+                max_active = 0
+                cached_width = None
+                for i in shard_ids:
+                    if i in self._cached:
+                        w = int(self._cached[i][5].shape[1])
+                        cached_width = max(cached_width or 0, w)
+                    else:
+                        u_lane, u_col, mx = self._shard_result(
+                            i, a_futs.pop(i), pool_a, _phase_a,
+                            (tasks[i], self._d, self._ii, self._ratio))
+                        pairs[i] = (u_lane, u_col)
+                        max_active = max(max_active, mx)
+                width = prj.projection_width(
+                    np.asarray([max(1, max_active)]), self._d,
+                    self._min_dim)
+                if cached_width is not None:
+                    # A partial cache entry's shards were written with the
+                    # full bucket's width (same key ⇒ same data), which
+                    # upper-bounds any recomputed-slice width.
+                    width = max(width, cached_width)
+                for i in shard_ids:
+                    if i not in self._cached:
+                        u_lane, u_col = pairs.pop(i)
+                        lo, hi = self.plan[i][1], self.plan[i][2]
+                        # Single-writer seam: _cols slots are filled only
+                        # by this scheduler thread before _cols_ready.set();
+                        # the Event publishes them.
+                        self._cols[i] = prj.fill_cols(
+                            u_lane, u_col, hi - lo, width, self._ii)
+            self._cols_ready.set()
+            self._run_phase_b(tasks, missing, pool_b, ctx, is_process)
+        finally:
+            pool_a.shutdown(wait=False)
+            if pool_b is not pool_a:
+                pool_b.shutdown(wait=False)
+
+    # -- degradation ladder ------------------------------------------------
+
+    def _submit(self, pool, fn, args, i):
+        """Pool submission, or None when the pool is quarantined/broken —
+        the caller then runs the task inline (serial fallback)."""
+        if self._quarantined:
+            return None
+        try:
+            return pool.submit(fn, *args)
+        except RuntimeError as e:  # BrokenExecutor / shut-down pool
+            self._note_quarantine(i, e)
+            return None
+
+    def _note_quarantine(self, i, exc) -> None:
+        if not self._quarantined:
+            self._quarantined = True
+            self.fault_stats["quarantined"] = True
+            logger.warning(
+                "staging[%s]: worker pool broken at shard %d (%s: %s) — "
+                "quarantining the pool; remaining shards re-stage "
+                "serially (bit-identical, slower)",
+                self._label, i, type(exc).__name__, exc)
+
+    def _note_retry(self, i, attempt, exc) -> None:
+        self.fault_stats["retries"] += 1
+        logger.warning(
+            "staging[%s]: shard %d attempt %d failed (%s: %s) — retrying",
+            self._label, i, attempt, type(exc).__name__, exc)
+        self._emitter.emit(ev_mod.StagingRetry(
+            label=self._label, index=i, attempt=attempt,
+            error=f"{type(exc).__name__}: {exc}"))
+
+    def _shard_result(self, i, fut, pool, fn, args):
+        """One shard task's result, walking the ladder: pooled attempts
+        with deterministic jittered backoff → quarantine when a crashed
+        worker broke the pool → inline serial execution on this thread.
+        Raises only when every rung failed (a deterministic task bug,
+        not an execution fault)."""
+        attempt = 0
+        while True:
+            try:
+                if fut is None:
+                    self.fault_stats["serial_restages"] += 1
+                    return fn(*args)
+                return fut.result()
+            except cf.BrokenExecutor as e:
+                # A crashed worker takes the whole pool down. That is not
+                # this task's fault — no retry budget burned.
+                self._note_quarantine(i, e)
+                fut = None
+            except Exception as e:
+                attempt += 1
+                if attempt > self.config.max_retries:
+                    raise
+                self._note_retry(i, attempt, e)
+                delay = _retry_delay(self.config.retry_backoff_s, attempt,
+                                     self.config.retry_jitter_seed, i)
+                if delay > 0:
+                    time.sleep(delay)
+                fut = self._submit(pool, fn, args, i)
+
+    def _publish_b(self, i, t_submit, res) -> None:
+        """Phase-B success path (pool callback thread, retry, or
+        straggler restage): the FIRST producer wins the claim, hands the
+        shard to the consumer (the fit stream is latency-sensitive), then
+        persists it; any later duplicate producer discards silently."""
+        with self._claim_lock:
+            if i in self._claimed:
+                return
+            self._claimed.add(i)
+        self._futures[i].set_result(("staged", res))
+        bi, lo, hi = self.plan[i]
+        self._emitter.emit(ev_mod.StagingShard(
+            label=self._label, index=i, bucket=bi,
+            entities=hi - lo,
+            seconds=time.monotonic() - t_submit,
+            source="staged"))
+        if self._cache_dir:
+            try:
+                staging_cache.save_shard(
+                    self._cache_dir, self._cache_key, i, res)
+            except OSError as e:
+                # Cache is best-effort, staging is not.
+                logger.warning(
+                    "staging[%s]: cache write for shard %d failed "
+                    "(%s: %s); staging continues", self._label, i,
+                    type(e).__name__, e)
+        self._shard_done()
+
+    def _run_phase_b(self, tasks, missing, pool_b, ctx, is_process):
+        """Depth-bounded phase-B dispatch in plan order. One scheduler
+        loop (this thread) owns submissions, backoff retries, quarantine
+        fallback, and the straggler deadline; pool completion callbacks
+        take the low-latency success handoff directly and only enqueue
+        FAILURES back here."""
+        if not missing:
+            return
+        cfg = self.config
+        failures: queue.Queue = queue.Queue()
+        remaining = set(missing)
+        to_submit = list(missing)
+        inflight: dict[int, float] = {}  # shard → latest dispatch time
+        retry_at: list[tuple[float, int]] = []  # (due time, shard)
+        attempts: dict[int, int] = {}
+
+        def _b_args(i):
+            args = (tasks[i], self._cols[i], int(self._cols[i].shape[1]))
+            return args if is_process else args + (ctx,)
+
+        def _is_claimed(i):
+            with self._claim_lock:
+                return i in self._claimed
+
+        def _fail(i, e):
+            with self._claim_lock:
+                if i in self._claimed:
+                    return
+                self._claimed.add(i)
+            logger.error(
+                "staging[%s]: shard %d failed after %d attempt(s): "
+                "%s: %s", self._label, i, attempts.get(i, 0) + 1,
+                type(e).__name__, e)
+            if not self._futures[i].done():
+                self._futures[i].set_exception(e)
+
+        def _serial(i, t_submit):
+            self.fault_stats["serial_restages"] += 1
+            try:
+                # Inline runs in the MAIN process, where the process
+                # pool's worker-ctx initializer never ran — always pass
+                # the ctx explicitly.
+                res = _phase_b(tasks[i], self._cols[i],
+                               int(self._cols[i].shape[1]), ctx)
+            except Exception as e:
+                _handle_failure(i, e)
+            else:
+                self._publish_b(i, t_submit, res)
+
+        def _handle_failure(i, e):
+            if not (i in remaining and not _is_claimed(i)):
+                return  # another producer already settled this shard
+            now = time.monotonic()
+            inflight.pop(i, None)
+            if isinstance(e, cf.BrokenExecutor):
+                self._note_quarantine(i, e)
+                _serial(i, now)
+                return
+            att = attempts.get(i, 0) + 1
+            attempts[i] = att
+            if att > cfg.max_retries:
+                _fail(i, e)
+                return
+            self._note_retry(i, att, e)
+            retry_at.append((now + _retry_delay(
+                cfg.retry_backoff_s, att, cfg.retry_jitter_seed, i), i))
+
+        def _dispatch(i):
+            now = time.monotonic()
+            fut = self._submit(pool_b, _phase_b, _b_args(i), i)
+            if fut is None:  # quarantined → serial fallback, right now
+                _serial(i, now)
+                return
+            inflight[i] = now
+            fut.add_done_callback(functools.partial(_on_b, i, now))
+
+        def _on_b(i, t_submit, fut):  # pool callback thread
+            try:
+                res = fut.result()
+            except BaseException as e:
+                failures.put((i, e))
+            else:
+                self._publish_b(i, t_submit, res)
+
+        while True:
+            with self._claim_lock:
+                remaining -= self._claimed
+            if not remaining:
+                return
+            now = time.monotonic()
+            # Due retries first: a recovering shard is the consumer's
+            # critical path (shards() yields in plan order).
+            due = [i for t, i in retry_at if t <= now]
+            retry_at[:] = [(t, i) for t, i in retry_at if t > now]
+            for i in due:
+                if i in remaining and not _is_claimed(i):
+                    _dispatch(i)
+            while True:
+                try:
+                    i, e = failures.get_nowait()
+                except queue.Empty:
+                    break
+                _handle_failure(i, e)
+            if cfg.straggler_timeout_s is not None:
+                for i in sorted(remaining):
+                    t0 = inflight.get(i)
+                    if (t0 is None or _is_claimed(i)
+                            or now - t0 <= cfg.straggler_timeout_s):
+                        continue
+                    waited = now - t0
+                    inflight.pop(i, None)
+                    self.fault_stats["stragglers"] += 1
+                    logger.warning(
+                        "staging[%s]: shard %d exceeded the straggler "
+                        "deadline (%.2fs > %.2fs) — re-staging serially; "
+                        "the late pool result will be discarded",
+                        self._label, i, waited, cfg.straggler_timeout_s)
+                    self._emitter.emit(ev_mod.StagingStraggler(
+                        label=self._label, index=i,
+                        waited_seconds=waited))
+                    _serial(i, t0)
+            # Depth-bounded submission in plan order; when submission is
+            # blocked on the depth bound, keep ticking so retries and
+            # straggler checks stay live (a blocking acquire here would
+            # freeze the ladder while the consumer catches up).
+            if to_submit:
+                if self._sem.acquire(timeout=0.05):
+                    _dispatch(to_submit.pop(0))
+                continue
+            timeout = 0.1
+            if retry_at:
+                timeout = min(timeout,
+                              max(0.005, min(t for t, _ in retry_at) - now))
+            if cfg.straggler_timeout_s is not None:
+                timeout = min(timeout,
+                              max(0.005, cfg.straggler_timeout_s / 4))
+            try:
+                i, e = failures.get(timeout=timeout)
+            except queue.Empty:
+                continue
+            _handle_failure(i, e)
+
+    def _shard_done(self):
+        with self._state_lock:
+            self._done_count += 1
+            last = self._done_count == self.num_shards
+        if last:
+            self._emitter.emit(ev_mod.StagingFinish(
+                label=self._label, num_shards=self.num_shards,
+                cached_shards=len(self._cached),
+                wall_seconds=time.monotonic() - self._t0))
+            self._maybe_finalize()
+
+    def _maybe_finalize(self):
+        if not self._cache_dir:
+            return
+        with self._state_lock:
+            ready = (self._done_count == self.num_shards
+                     and (not self._sub_expected or self._sub is not None)
+                     and not self._finalized)
+            if ready:
+                self._finalized = True
+        if ready:
+            try:
+                staging_cache.save_meta(self._cache_dir, self._cache_key,
+                                        self.num_shards, self._sub)
+            except OSError:
+                pass
+
+
+# ------------------------------------------------- projection-only helper
+
+
+def project_buckets(
+    bucketing,
+    X,
+    intercept_index: Optional[int] = None,
+    labels: Optional[np.ndarray] = None,
+    features_to_samples_ratio: Optional[float] = None,
+    config: Optional[StagingConfig] = None,
+    min_dim: int = 8,
+) -> list[prj.BucketProjection]:
+    """Parallel projection build WITHOUT the feature gathers: one
+    BucketProjection per bucket, bit-identical to calling
+    ``build_bucket_projection`` per bucket: the projection wall alone
+    (and a convenient standalone API when only the column maps are
+    needed)."""
+    config = config or StagingConfig()
+    plan = plan_shards(bucketing, config.shard_entities)
+    tasks = split_shard_triplets(
+        bucketing, plan, X,
+        labels=labels if features_to_samples_ratio is not None else None)
+    d = prj._shard_shape(X)[1]
+    workers = config.resolved_workers()
+    ratio = features_to_samples_ratio
+    if workers == 1 or config.mode == "process":
+        # In-line for 1 worker; process mode gains nothing here (the
+        # pair arrays would be pickled back at once) — keep it simple.
+        a_res = [_phase_a(t, d, intercept_index, ratio) for t in tasks]
+    else:
+        with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+            a_res = list(pool.map(
+                lambda t: _phase_a(t, d, intercept_index, ratio), tasks))
+    out = []
+    for bi, b in enumerate(bucketing.buckets):
+        ids = [i for i, p in enumerate(plan) if p[0] == bi]
+        max_active = max((a_res[i][2] for i in ids), default=0)
+        width = prj.projection_width(
+            np.asarray([max(1, max_active)]), d, min_dim)
+        cols = np.concatenate([
+            prj.fill_cols(a_res[i][0], a_res[i][1],
+                          plan[i][2] - plan[i][1], width, intercept_index)
+            for i in ids]) if ids else np.full((0, width), -1, np.int32)
+        out.append(prj.BucketProjection(cols=cols, d_active=int(width)))
+    return out

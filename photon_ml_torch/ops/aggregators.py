@@ -179,10 +179,12 @@ def hessian_matrix(loss: PointwiseLoss, means: Tensor, batch: LabeledBatch,
     d2 = loss.d2z(z, batch.labels)
     r = _masked(batch.weights, d2)
     Xp = batch.features.to(torch.float32)
+    # (..., d) factors and shifts apply to every row of their lane: shared
+    # (d,) ones, or a projected wave's per-lane (B, d_active) ones.
     if norm.shifts is not None:
-        Xp = Xp - norm.shifts
+        Xp = Xp - norm.shifts.unsqueeze(-2)
     if norm.factors is not None:
-        Xp = Xp * norm.factors
+        Xp = Xp * norm.factors.unsqueeze(-2)
     return torch.matmul(Xp.transpose(-1, -2), Xp * r.unsqueeze(-1))
 
 

@@ -8,10 +8,11 @@ callable. Listeners must be cheap and non-failing; a raising listener is
 logged and detached rather than killing training.
 
 The events here are the ones the ported paths emit (coordinate descent,
-checkpoint recovery, the streamed fixed effect's chunk staging, the
-convergence watchdogs, and scoring: offline by ``game_score`` and
-online by the serving service), with the reference's field names; the
-others come with the slices that emit them. ``obs/bridge.py`` turns each
+checkpoint recovery, the projected random effect's staging pipeline, the
+streamed fixed effect's chunk staging, the convergence watchdogs, and
+scoring: offline by ``game_score`` and online by the serving service),
+with the reference's field names; the others come with the slices that
+emit them. ``obs/bridge.py`` turns each
 ``*Start``/``*Finish`` pair into a span and the point events into
 timeline instants and counters.
 """
@@ -66,6 +67,57 @@ class CheckpointRecovered(Event):
 
 
 @dataclasses.dataclass(frozen=True)
+class StagingStart(Event):
+    """One random-effect staging pipeline starting: ``num_shards`` staged
+    bucket groups over ``workers`` pool workers (``mode`` "thread" or
+    "process"); ``cached_shards`` of them will come from the staging cache
+    without restaging."""
+
+    label: str  # "<re_type>:<shard_id>"
+    num_shards: int
+    workers: int
+    mode: str
+    cached_shards: int
+
+
+@dataclasses.dataclass(frozen=True)
+class StagingShard(Event):
+    """One staged bucket group became available to the fit stream.
+    ``source`` is "staged" (projected now) or "cache" (memory-mapped from
+    the staging cache); ``seconds`` is the projection+gather time for
+    staged shards (0.0 for cache hits)."""
+
+    label: str
+    index: int
+    bucket: int
+    entities: int
+    seconds: float
+    source: str
+
+
+@dataclasses.dataclass(frozen=True)
+class StagingRetry(Event):
+    """One staged shard's task failed and is being retried (bounded,
+    jittered backoff — docs/ROBUSTNESS.md). ``attempt`` is 1-based."""
+
+    label: str
+    index: int
+    attempt: int
+    error: str
+
+
+@dataclasses.dataclass(frozen=True)
+class StagingStraggler(Event):
+    """One staged shard exceeded the straggler deadline and was
+    re-staged serially; the late pool result is discarded (content is
+    scheduling-independent, so either producer's bytes are THE bytes)."""
+
+    label: str
+    index: int
+    waited_seconds: float
+
+
+@dataclasses.dataclass(frozen=True)
 class StreamStageStart(Event):
     """One streamed fixed-effect chunk-staging pass starting: the
     coordinate's SparseShard canonicalizes into ``num_chunks``
@@ -101,6 +153,17 @@ class WatchdogAlert(Event):
     action: str
     detail: str
     coordinate: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StagingFinish(Event):
+    """Every shard of one staging pipeline is produced (NOT necessarily
+    consumed — consumption is the fit stream's side of the handoff)."""
+
+    label: str
+    num_shards: int
+    cached_shards: int
+    wall_seconds: float
 
 
 @dataclasses.dataclass(frozen=True)

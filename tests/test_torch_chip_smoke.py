@@ -59,6 +59,27 @@ def test_child_generates_config4_rows_bit_for_bit():
                                           "re_itemId"]
 
 
+def test_child_generates_sparse_re_rows_bit_for_bit():
+    """sparse_re_train's rows from the child process are the in-process
+    generator's, and each entity's columns come from its pool (at most
+    16 distinct columns an entity, the ELL padding at d)."""
+    rows, entities = 4000, 400
+    proc = chip_smoke.start_sparse_re_data(rows, entities)
+    got = chip_smoke.collect_sparse_re_data(np, proc)
+    want = chip_smoke.make_sparse_re_arrays(np, rows, entities)
+    assert proc.returncode == 0 and list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert np.array_equal(got[k], want[k]), k
+    ds = chip_smoke.sparse_re_dataset(np, got, entities)
+    idx = ds.feature_shards["re"].indices
+    live = idx < chip_smoke.SPARSE_RE_DIM
+    pairs = np.unique(np.stack([np.broadcast_to(
+        got["ids"][:, None], idx.shape)[live], idx[live]]), axis=1)
+    assert np.bincount(pairs[0]).max() <= chip_smoke.SPARSE_RE_POOL
+    assert np.all(ds.feature_shards["re"].values[~live] == 0.0)
+
+
 def test_libsvm_text_reads_back_the_rows(tmp_path):
     """game_cli_sparse's LIBSVM files: game_train's own loader gives back
     the rows they were written from (every float32 exact), and the

@@ -228,15 +228,10 @@ def test_dense_game_fit_matches_reference():
 
 @pytest.mark.parametrize("option,slice_no", [
     ({"streaming": StreamingConfig(solver="sdca")}, 7),
-    ({"staging": object()}, 6),
-    ({"staging_cache_dir": "cache"}, 6),
-    # A random effect's projected and subspace options ("re": its data
-    # configuration's keywords). trace=, ledger_dir= and watchdog= stood
-    # here until they were ported; tests/test_torch_{obs,ledger}.py fit
-    # with them.
-    ({"re": {"projector": "INDEX_MAP"}}, 6),
-    ({"re": {"features_to_samples_ratio": 0.5}}, 6),
-    ({"re": {"subspace_model": True}}, 6),
+    # staging=, staging_cache_dir= and a random effect's projected and
+    # subspace options stood here until they were ported, and so did
+    # trace=, ledger_dir= and watchdog=; tests/test_torch_subspace.py and
+    # tests/test_torch_{obs,ledger}.py fit with them.
     ({"sweep": object()}, 8), ({"ingest": object()}, 9),
     ("factored", 8), ("random_projector", 8)])
 def test_unported_options_raise(option, slice_no):

@@ -288,17 +288,12 @@ NOT_PORTED = {
     "fault_plan": ("train", ["--fault-plan", "plan.json"], 10),
     "sweep": ("train", ["--sweep"], 8),
     "sweep_spec": ("train", ["--sweep", "theta=1e-4"], 8),
-    "staging": ("train", ["--staging", "workers=2"], 6),
-    "staging_cache_dir": ("train", ["--staging-cache-dir", "c"], 6),
     "factored": ("train", ["--coordinate",
                            "name=f,type=factored,shard=re_userId,re=userId"],
                  8),
     "projector_random": ("train", [
         "--coordinate", "name=r,type=random,shard=re_userId,re=userId,"
                         "projector=RANDOM,projected_dim=2"], 8),
-    "projector_index_map": ("train", [
-        "--coordinate", "name=r,type=random,shard=re_userId,re=userId,"
-                        "projector=INDEX_MAP"], 6),
     "score_avro_feature_shard": ("score", ["--avro-feature-shard",
                                            "name=global"], 9),
     "score_avro_re_types": ("score", ["--avro-re-types", "userId"], 9),

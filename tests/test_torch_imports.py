@@ -74,6 +74,27 @@ def test_no_jax_or_reference_import(path):
                 f"{path}:{node.lineno} imports {name}"
 
 
+@pytest.mark.parametrize("module", [
+    "photon_ml_torch.game.projector", "photon_ml_torch.game.staging",
+    "photon_ml_torch.game.staging_cache"])
+def test_projection_modules_are_covered(module):
+    """The projected random effect's host modules are among the scanned
+    ones, and a spawned staging worker's imports bring no JAX either."""
+    assert module in _module_names()
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['photon_ml_tpu'] = None\n"
+        f"import {module}\n"
+        "print(sorted(m for m in sys.modules if m.startswith("
+        "'photon_ml_torch.game.')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert module in out.stdout
+
+
 def _tiny_model():
     from photon_ml_torch.game.models import (FixedEffectModel, GameModel,
                                              RandomEffectModel)

@@ -192,8 +192,11 @@ def test_dense_down_sampled_fit_matches_reference(dense, dtype, iterations):
     coord = FixedEffectCoordinate(ds, "global", losses.LOGISTIC, cfg,
                                   down_sampling_seed=11,
                                   feature_dtype=dtype, device="cpu")
+    # The reference on one device, as the port runs: on the test suite's
+    # 8-device mesh its psum reorders the sums, which alone moves its
+    # coefficients by ~1e-4.
     ref = RefFixedEffectCoordinate(rds, "global", ref_losses.LOGISTIC,
-                                   ref_cfg, make_mesh(),
+                                   ref_cfg, _mesh1(),
                                    down_sampling_seed=11,
                                    feature_dtype=dtype)
     w = [coord.train_model(offsets).coefficients.means for _ in range(2)]
@@ -266,9 +269,13 @@ def _mesh1():
 def test_sparse_down_sampled_fit_matches_reference(sparse_data, hybrid):
     """Two draws against the reference's. The subsampled objective is the
     same (the same masked weights); both solvers stop on its float32
-    value, which resolves ~1e-4 of it, so their coefficients are held to
-    the 5e-3 band of full sparse solves and their objective values to
-    1e-6 relative (the same minimum)."""
+    value, which resolves ~1e-4 of it, so their objective values are held
+    to 1e-6 relative (the same minimum). On ELL the coefficients are held
+    to the 5e-3 band of full sparse solves. On the hybrid layout two
+    float32 L-BFGS runs stop at different points of a flat minimum, so
+    the coefficients are held to that minimum itself: the port lies no
+    farther from the float64 minimiser of the masked objective than the
+    reference does."""
     ds, rds = sparse_data
     cfg, ref_cfg = _configs()
     off = np.zeros(ds.num_rows, np.float32)
@@ -281,14 +288,20 @@ def test_sparse_down_sampled_fit_matches_reference(sparse_data, hybrid):
     for _ in range(2):
         got = coord.train_model(off).coefficients.means
         want = ref.train_model(jnp.asarray(off)).coefficients.means
-        np.testing.assert_allclose(_host(got), _host(want), rtol=0,
-                                   atol=TOL)
         idx, mult = sampling.binary_classification_down_sample(
             rng, ds.response, RATE)
         assert coord.last_solve["sampled_rows"] == len(idx)
         assert coord.last_solve["sample_seconds"] >= 0.0
         mask = np.zeros(ds.num_rows, np.float32)
         mask[idx] = ds.weights[idx] * mult
+        if hybrid:
+            w_star = _minimiser(ds, mask)
+            gap = np.abs(_host(got).astype(np.float64) - w_star).max()
+            ref_gap = np.abs(_host(want).astype(np.float64) - w_star).max()
+            assert gap <= ref_gap, (gap, ref_gap)
+        else:
+            np.testing.assert_allclose(_host(got), _host(want), rtol=0,
+                                       atol=TOL)
         f, f_ref = (_objective(ds, torch.from_numpy(np.array(_host(w))),
                                mask) for w in (got, want))
         assert abs(f - f_ref) <= 1e-6 * abs(f_ref), (f, f_ref)
@@ -307,6 +320,29 @@ def _objective(ds, w, weights):
     loss = torch.nn.functional.softplus(z) - y * z
     return float((b.weights.double() * loss).sum()
                  + 0.5 * (w.double() ** 2).sum())
+
+
+def _minimiser(ds, weights, gtol=1e-10):
+    """The float64 minimiser of ``_objective``'s masked objective, by
+    Newton's method on the dense (n, d) matrix (d = 64: a few steps)."""
+    shard = ds.feature_shards["global"]
+    n, d = shard.shape
+    X = np.zeros((n, d + 1))
+    np.add.at(X, (np.arange(n)[:, None], shard.indices), shard.values)
+    X = torch.from_numpy(X[:, :d])
+    y = torch.from_numpy(ds.response.astype(np.float64))
+    m = torch.from_numpy(weights.astype(np.float64))
+    w = torch.zeros(d, dtype=torch.float64)
+    for _ in range(100):
+        p = torch.sigmoid(X @ w)
+        g = X.T @ (m * (p - y)) + w
+        if float(g.abs().max()) <= gtol:
+            return w.numpy()
+        H = X.T @ (X * (m * p * (1.0 - p))[:, None]) \
+            + torch.eye(d, dtype=torch.float64)
+        w = w - torch.linalg.solve(H, g)
+    raise AssertionError(f"Newton did not reach {gtol}: "
+                         f"{float(g.abs().max())}")
 
 
 def test_hybrid_masked_objective_equals_ell(sparse_data):

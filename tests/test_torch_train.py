@@ -414,19 +414,6 @@ def test_coordinates_raise_without_cuda(data):
                                losses.LOGISTIC, CFG)
 
 
-@pytest.mark.parametrize("option", ["projection", "subspace", "ratio",
-                                    "staging_cache"])
-def test_unported_options_raise(data, option):
-    train = data[0]
-    kw = {"projection": {"projection": True},
-          "subspace": {"subspace_model": True},
-          "ratio": {"features_to_samples_ratio": 0.5},
-          "staging_cache": {"staging_cache_dir": "cache"}}[option]
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        RandomEffectCoordinate(train, "userId", "re_userId",
-                               losses.LOGISTIC, CFG, device="cpu", **kw)
-
-
 def test_fixed_effect_down_sampling_matches_reference(data):
     """down_sampling_rate 0.5 on the config-4 fixed effect: the port draws
     the reference's subsets (the binary sampler, seed 4) and gathers them
